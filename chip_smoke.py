@@ -1,0 +1,424 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (``cunvsm_torch``) on one NVIDIA GPU.
+
+Run from the root of a checkout, on a machine with a CUDA card:
+
+    python3 chip_smoke.py        # about a minute
+
+It builds both Triton kernels from the sources in the checkout (their cache
+goes under build/) and runs the port's main path:
+
+  A  each kernel against its plain PyTorch version at the shapes of the
+     main path, bitwise (sweep: m', v' and p' on [65536, 300] and
+     [262144, 256] float32; cast: [65536, 300]), with the time of each
+     (CUDA events, median of 40 after warm-up);
+  B0 three steps of a small configuration on the card (float32, kernels)
+     against the same steps on the CPU in float64 (plain versions);
+  B  the canonical NVSM configuration of bench.py at full width (V 65536,
+     N 262144, d 300->256, B 51200, W 10, k 10, hard_tanh + BN, full_adam,
+     bfloat16 streams, pool auto = 2048 / stride 205) for 23 steps from a
+     Zipf corpus of 262144 documents x 32 tokens through TextEntitySource;
+     every cost finite, the sweep launched twice and the cast once per step;
+  C  train_model on the three-topic corpus of
+     tests/test_train_integration.py (cost falls below 0.6x, MAP > 0.8),
+     then top-1000 rankings of 100 random queries over the phase-B tables.
+
+Without a CUDA device it exits with an error before printing any result.
+The last line of its output is one JSON object with "ok" and the device;
+the line before it lists each kernel with its launches, error and times.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from cunvsm_torch.config import (
+    AdamConfig,
+    AdamMode,
+    DataConfig,
+    ModelDesc,
+    Nonlinearity,
+    TrainConfig,
+    UpdateMethod,
+)
+from cunvsm_torch.data.corpus import build_corpus
+from cunvsm_torch.data.instances import TextEntitySource
+from cunvsm_torch.data.synth import zipf_corpus
+from cunvsm_torch.models.objectives import TextEntityBatch
+from cunvsm_torch.models.params import init_params, params_from_numpy, params_to_numpy
+from cunvsm_torch.ops import adam_sweep, cast
+from cunvsm_torch.optim.updates import Optimizer
+from cunvsm_torch.query.engine import QueryEngine, _rank_kernel
+from cunvsm_torch.query.metrics import evaluate_run
+from cunvsm_torch.train.step import make_train_step, resolve_negative_sampling
+from cunvsm_torch.train.trainer import train_model
+
+# The canonical configuration (bench.py) and the size of phase B.
+CANONICAL = dict(
+    num_words=65536, num_entities=262144, doc_len=32, word_dim=300,
+    entity_dim=256, batch=51200, window=10, negatives=10, warmup=3, steps=20,
+)
+SWEEP_HYPER = dict(lam=0.01 / 51200, beta1=0.9, beta2=0.999, eps=1e-6)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> list:
+    """Per-call times of ``fn`` on the card, in ms (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def paired_ms(kernel_fn, plain_fn):
+    """Median times (kernel, plain), measured plain, kernel, kernel, plain."""
+    p1, k1, k2, p2 = cuda_ms(plain_fn), cuda_ms(kernel_fn), cuda_ms(kernel_fn), cuda_ms(plain_fn)
+    return statistics.median(k1 + k2), statistics.median(p1 + p2)
+
+
+def canonical_desc_cfg(sizes):
+    desc = ModelDesc(
+        word_repr_size=sizes["word_dim"], entity_repr_size=sizes["entity_dim"],
+        nonlinearity=Nonlinearity.HARD_TANH, batch_normalization=True,
+    )
+    cfg = TrainConfig(
+        batch_size=sizes["batch"], window_size=sizes["window"],
+        num_random_entities=sizes["negatives"], update_method=UpdateMethod.ADAM,
+        adam=AdamConfig(mode=AdamMode.DENSE_UPDATE_DENSE_VARIANCE),
+        learning_rate=1e-3, regularization_lambda=1e-2,
+        stream_dtype="bfloat16", window_sum_dtype="bfloat16",
+        uniform_feature_weights=True, negative_pool_size=-1,
+    )
+    return desc, cfg
+
+
+def sweep_operands(rows, dim, device, gen):
+    """Sweep operands (p, m, v, s) at the scales of a training step.
+
+    Half the rows of the gradient s are zero, as for rows no instance
+    touched: there agg is -lam * p alone, so a sweep without the L2 term
+    leaves m' and p' visibly wrong.  v is of the order of s**2, so v' moves
+    by about a thousandth of itself and a sweep that never stores v' shows.
+    """
+    s = torch.randn((rows, dim), device=device, generator=gen) * 1e-3
+    s[rows // 2:] = 0.0
+    m = torch.randn((rows, dim), device=device, generator=gen) * 1e-4
+    v = torch.rand((rows, dim), device=device, generator=gen) * 2e-6
+    p = (torch.rand((rows, dim), device=device, generator=gen) - 0.5) * 0.2
+    return p, m, v, s
+
+
+def check_sweep(device, rows, dim, gen):
+    """The sweep kernel against its plain version, bitwise.
+
+    Both compute the same IEEE operations in the same order (``_rn``
+    division and square root, no FMA contraction), so m', v' and p' must be
+    equal bit for bit.  The operands are first shown to expose a sweep that
+    drops the L2 term or skips a store.  Returns the operands, the kernel's
+    outputs and the max abs difference (0.0).
+    """
+    p, m, v, s = sweep_operands(rows, dim, device, gen)
+    scale = torch.tensor(1e-3 * 0.0316, device=device)
+    ref = [t.clone() for t in (p, m, v)]
+    got = [t.clone() for t in (p, m, v)]
+    no_l2 = [t.clone() for t in (p, m, v)]
+    adam_sweep.sweep_plain(*ref, s, scale, **SWEEP_HYPER)
+    adam_sweep.sweep_plain(*no_l2, s, scale, **{**SWEEP_HYPER, "lam": 0.0})
+    for name, before, after, wrong in zip(("p", "m", "v"), (p, m, v), ref, no_l2):
+        if torch.equal(before, after):
+            raise AssertionError(f"sweep operands leave {name} unchanged")
+        if name != "v" and torch.equal(after, wrong):
+            raise AssertionError(f"sweep operands hide the L2 term in {name}'")
+    adam_sweep.fused_adam_dense_sweep(*got, s, scale, **SWEEP_HYPER)
+    torch.cuda.synchronize()
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    for name, g, r in zip(("p'", "m'", "v'"), got, ref):
+        if not torch.equal(g, r):
+            raise AssertionError(
+                f"sweep kernel {name} on [{rows}, {dim}] differs from the plain "
+                f"version: max abs {float((g - r).abs().max()):.3e}")
+    return (p, m, v, s, scale), got, err
+
+
+def phase_a(device, sizes):
+    """Each kernel against its plain version at the main path's shapes."""
+    out = {}
+    gen = torch.Generator(device=device).manual_seed(0)
+    sweep_err, sweep_ms, sweep_plain_ms = 0.0, 0.0, 0.0
+    for rows, dim in ((sizes["num_words"], sizes["word_dim"]),
+                      (sizes["num_entities"], sizes["entity_dim"])):
+        (p, m, v, s, scale), got, err = check_sweep(device, rows, dim, gen)
+        sweep_err = max(sweep_err, err)
+        ref = [p, m, v]
+        k_ms, p_ms = paired_ms(
+            lambda: adam_sweep.fused_adam_dense_sweep(*got, s, scale, **SWEEP_HYPER),
+            lambda: adam_sweep.sweep_plain(*ref, s, scale, **SWEEP_HYPER),
+        )
+        gbs = 28 * rows * dim / (k_ms * 1e-3) / 1e9
+        log(f"A sweep [{rows}, {dim}]: bitwise equal, max_abs_err={err:.3e} kernel_ms={k_ms:.4f} "
+            f"plain_ms={p_ms:.4f} kernel_GB/s={gbs:.0f}")
+        sweep_ms += k_ms
+        sweep_plain_ms += p_ms
+        del s, m, v, p, ref, got
+    out["sweep"] = dict(max_abs_err=sweep_err, ms=sweep_ms, plain_ms=sweep_plain_ms)
+
+    x = torch.randn((sizes["num_words"], sizes["word_dim"]), device=device, generator=gen)
+    x = x * torch.exp(torch.rand(x.shape, device=device, generator=gen) * 40 - 20)
+    y = cast.cast_table(x, torch.bfloat16)
+    ref = cast.cast_plain(x, torch.bfloat16)
+    torch.cuda.synchronize()
+    if not torch.equal(y.view(torch.int16), ref.view(torch.int16)):
+        raise AssertionError("cast_table kernel is not bitwise equal to .to(bfloat16)")
+    k_ms, p_ms = paired_ms(
+        lambda: cast.cast_table(x, torch.bfloat16), lambda: cast.cast_plain(x, torch.bfloat16)
+    )
+    err = float((y.float() - ref.float()).abs().max())
+    log(f"A cast [{x.shape[0]}, {x.shape[1]}]: bitwise equal, kernel_ms={k_ms:.4f} "
+        f"plain_ms={p_ms:.4f} kernel_GB/s={6 * x.numel() / (k_ms * 1e-3) / 1e9:.0f}")
+    out["cast"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+    return out
+
+
+def phase_b0(device):
+    """Three small steps on the card (float32) against the CPU (float64)."""
+    sizes = dict(CANONICAL, num_words=64, num_entities=48, word_dim=12, entity_dim=8,
+                 batch=32, window=4, negatives=3)
+    desc, cfg = canonical_desc_cfg(sizes)
+    cfg = TrainConfig(**{**cfg.__dict__, "stream_dtype": "float32",
+                         "window_sum_dtype": "float32", "negative_pool_size": 8})
+    init = init_params(torch.Generator().manual_seed(0), 64, 48, desc, dtype=torch.float64)
+    runs = []
+    for dev, dtype in ((device, torch.float32), (torch.device("cpu"), torch.float64)):
+        params = params_from_numpy(params_to_numpy(init), dev, dtype)
+        state = Optimizer(cfg).init(params)
+        step = make_train_step(desc, cfg, dev, None)
+        costs = []
+        rng = np.random.RandomState(1)
+        for _ in range(3):
+            feats = rng.randint(0, 64, (32, 4))
+            batch = TextEntityBatch(
+                torch.as_tensor(feats, device=dev), torch.ones((32, 4), dtype=dtype, device=dev),
+                torch.as_tensor(rng.randint(0, 48, 32), device=dev),
+                torch.ones(32, dtype=dtype, device=dev),
+            )
+            pool = torch.as_tensor(rng.randint(0, 48, 8), device=dev)
+            costs.append(float(step(params, state, batch, negative_ids=pool)))
+        runs.append((np.array(costs), params_to_numpy(params)))
+    (gc, gp), (cc, cp) = runs
+    table_err = max(float(np.abs(g.astype(np.float64) - c).max()) for g, c in zip(gp, cp))
+    cost_err = float(np.abs(gc - cc).max() / np.abs(cc).max())
+    log(f"B0 small steps card f32 vs cpu f64: cost_rel_err={cost_err:.3e} "
+        f"table_max_abs_err={table_err:.3e}")
+    if not (cost_err < 1e-5 and table_err < 1e-4):
+        raise AssertionError("the card's small steps disagree with the CPU reference")
+
+
+def canonical_training(device, sizes):
+    """Set up the canonical configuration at full width on ``device``.
+
+    Returns ``run(n) -> (costs, host_seconds)``, which takes n host-fed
+    training steps, and the params, corpus, pool size and stride.
+    """
+    desc, cfg = canonical_desc_cfg(sizes)
+    n_ent, batch = sizes["num_entities"], sizes["batch"]
+    t0 = time.perf_counter()
+    corpus = zipf_corpus(n_ent, sizes["doc_len"], vocab_size=sizes["num_words"],
+                         window_size=sizes["window"], seed=4242)
+    source = TextEntitySource(corpus, batch_size=batch, seed=cfg.seed)
+    batches = source.epoch_batches()
+    log(f"B corpus {n_ent} docs x {sizes['doc_len']} tokens, "
+        f"{source.instances_per_epoch()} instances/epoch, set-up {time.perf_counter() - t0:.1f}s")
+    pool, stride = resolve_negative_sampling(cfg, desc, batch, n_ent)
+    log(f"B negative sampling: pool={pool} stride={stride}")
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = init_params(gen, sizes["num_words"], n_ent, desc, device=device)
+    state = Optimizer(cfg).init(params)
+    step = make_train_step(desc, cfg, device, gen, num_entities=n_ent)
+
+    def run(n):
+        host_s = 0.0
+        costs = []
+        for _ in range(n):
+            h0 = time.perf_counter()
+            b = TextEntityBatch.from_numpy(next(batches), device)
+            host_s += time.perf_counter() - h0
+            costs.append(step(params, state, b))
+        return costs, host_s
+
+    return run, params, corpus, pool, stride
+
+
+def phase_b(device, sizes):
+    """The canonical configuration at full width; returns its numbers."""
+    run, params, corpus, pool, stride = canonical_training(device, sizes)
+    batch = sizes["batch"]
+    costs, _ = run(sizes["warmup"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    timed, host_s = run(sizes["steps"])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    costs = [float(c) for c in costs + timed]
+    if not all(np.isfinite(costs)):
+        raise AssertionError(f"non-finite cost in phase B: {costs}")
+    stats = dict(
+        steps=sizes["warmup"] + sizes["steps"],
+        pool=pool, stride=stride,
+        pairs_per_s=batch * sizes["steps"] / elapsed,
+        ms_per_step=1e3 * elapsed / sizes["steps"],
+        host_batch_ms_per_step=1e3 * host_s / sizes["steps"],
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        first_cost=costs[0], last_cost=costs[-1],
+    )
+    return stats, params, corpus
+
+
+TOPICS = {
+    "space": "rocket orbit launch satellite astronaut mission gravity".split(),
+    "cooking": "recipe oven flour butter bake sugar yeast".split(),
+    "sports": "goal match player referee score stadium league".split(),
+}
+
+
+def three_topic_corpus(num_docs_per_topic=6, doc_len=30, seed=0):
+    """The synthetic corpus of tests/test_train_integration.py."""
+    rng = np.random.RandomState(seed)
+    docs, labels = [], {}
+    common = "the and with from this that".split()
+    for topic, words in TOPICS.items():
+        for i in range(num_docs_per_topic):
+            body = [
+                words[rng.randint(len(words))] if rng.rand() < 0.7
+                else common[rng.randint(len(common))]
+                for _ in range(doc_len)
+            ]
+            docno = f"{topic}_{i}"
+            docs.append((docno, " ".join(body)))
+            labels[docno] = topic
+    return docs, labels
+
+
+def phase_c(device, params_b, corpus_b):
+    docs, labels = three_topic_corpus()
+    corpus = build_corpus(
+        docs, DataConfig(max_vocabulary_size=0, min_document_frequency=0,
+                         max_document_frequency=0), window_size=4,
+    )
+    desc = ModelDesc(word_repr_size=24, entity_repr_size=16,
+                     nonlinearity=Nonlinearity.TANH, bias_negative_samples=True)
+    cfg = TrainConfig(
+        num_epochs=30, batch_size=32, window_size=4, num_random_entities=5,
+        learning_rate=0.01, regularization_lambda=0.01, update_method=UpdateMethod.ADAM,
+        adam=AdamConfig(mode=AdamMode.DENSE_UPDATE_DENSE_VARIANCE), seed=1,
+    )
+    result = train_model(desc, cfg, corpus, device)
+    costs = result.epoch_costs
+    if not (all(np.isfinite(costs)) and costs[-1] < 0.6 * costs[0]):
+        raise AssertionError(f"three-topic training did not converge: {costs}")
+    engine = QueryEngine(result.params, corpus.vocab.terms, corpus.docnos, nonlinearity="tanh")
+    run = engine.rank({t: w[:3] for t, w in TOPICS.items()}, top_k=len(corpus.docnos))
+    qrels = {t: {d: int(labels[d] == t) for d in corpus.docnos} for t in TOPICS}
+    map_ = evaluate_run(run, qrels, measures=("map",))["map"]
+    log(f"C three-topic: {result.steps} steps, cost {costs[0]:.4f} -> {costs[-1]:.4f}, MAP={map_:.4f}")
+    if not map_ > 0.8:
+        raise AssertionError(f"three-topic MAP {map_} <= 0.8")
+
+    engine = QueryEngine(params_b, corpus_b.vocab.terms, corpus_b.docnos)
+    rng = np.random.RandomState(7)
+    terms = corpus_b.vocab.terms
+    queries = {f"q{i}": [terms[j] for j in rng.randint(0, len(terms), 3)] for i in range(100)}
+    engine.rank(queries, top_k=1000)  # warm-up
+    t0 = time.perf_counter()
+    ranked = engine.rank(queries, top_k=1000)
+    rank_ms = 1e3 * (time.perf_counter() - t0)
+    if len(ranked) != 100 or any(len(r) != 1000 for r in ranked.values()):
+        raise AssertionError("ranking did not return 100 x 1000 results")
+    for r in ranked.values():
+        s = np.array([x for _, x in r])
+        if not (np.all(np.isfinite(s)) and np.all(np.diff(s) <= 0)):
+            raise AssertionError("ranking scores not finite and descending")
+    q = torch.as_tensor(
+        np.stack([engine.query_representation(t) for t in queries.values()]), device=device
+    )
+    kernel_ms = statistics.median(cuda_ms(lambda: _rank_kernel(
+        q, engine.transform_w, engine._bias_scaled, engine._entity_norm, 1000,
+        engine.nonlinearity)))
+    log(f"C serve: 100 queries top-1000 over {len(corpus_b.docnos)} docs: "
+        f"rank()_ms={rank_ms:.2f} (host included) device_rank_ms={kernel_ms:.3f}")
+    return dict(map=map_, rank_ms=rank_ms, device_rank_ms=kernel_ms)
+
+
+def gpu_name_and_power() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py: no CUDA device; the smoke test runs only on a GPU")
+    device = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"nvidia-smi: {gpu_name_and_power()}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+        f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    log(f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+
+    t0 = time.perf_counter()
+    kernels = phase_a(device, CANONICAL)
+    log(f"A done in {time.perf_counter() - t0:.1f}s (first launches include the Triton builds)")
+    phase_b0(device)
+
+    adam_sweep.fused_adam_dense_sweep.launches = 0
+    cast.cast_table.launches = 0
+    stats, params_b, corpus_b = phase_b(device, CANONICAL)
+    launches = {
+        "sweep": adam_sweep.fused_adam_dense_sweep.launches,
+        "cast": cast.cast_table.launches,
+    }
+    log("B " + json.dumps(stats))
+    if launches != {"sweep": 2 * stats["steps"], "cast": stats["steps"]}:
+        raise AssertionError(f"kernel launches {launches} for {stats['steps']} steps")
+    log(f"B launches: {launches} over {stats['steps']} steps")
+    phase_c(device, params_b, corpus_b)
+
+    meta = {
+        "sweep": ("fused_adam_dense_sweep", "cunvsm_torch/ops/adam_sweep.py",
+                  "cunvsm_tpu/ops/adam_sweep.py:72"),
+        "cast": ("cast_table", "cunvsm_torch/ops/cast.py", "cunvsm_tpu/ops/cast.py:31"),
+    }
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "triton", "source": src, "replaces": rep,
+         "launches": launches[key], **kernels[key]}
+        for key, (name, src, rep) in meta.items()
+    ]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

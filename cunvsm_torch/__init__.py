@@ -1,0 +1,25 @@
+"""cunvsm-torch: the PyTorch port of cunvsm-tpu for one NVIDIA H100.
+
+The canonical NVSM training step (TEXT_ENTITY objective, full_adam) and the
+ranking over trained tables, with Triton kernels in place of the JAX
+package's Pallas kernels.  This package imports torch and numpy, never jax
+or ``cunvsm_tpu``; its host modules are copies of the JAX package's.
+"""
+
+from cunvsm_torch.config import (
+    AdamConfig,
+    AdamMode,
+    DataConfig,
+    ModelDesc,
+    Nonlinearity,
+    TrainConfig,
+    UpdateMethod,
+)
+from cunvsm_torch.models.objectives import AscentGrads, SparseGrad, TextEntityBatch
+from cunvsm_torch.models.params import ModelParams, init_params
+from cunvsm_torch.optim.updates import Optimizer, OptState
+from cunvsm_torch.query.engine import QueryEngine
+from cunvsm_torch.train.step import make_train_step
+from cunvsm_torch.train.trainer import train_model
+
+__version__ = "0.1.0"

@@ -1,0 +1,102 @@
+#!/usr/bin/env python3
+"""Where the time of the PyTorch port's canonical training step goes.
+
+Run from the root of a checkout, on a machine with a CUDA card:
+
+    python3 profile_torch_step.py --out DIR
+
+It sets up the canonical configuration of ``chip_smoke.py``'s phase B at
+full width, takes warm-up steps, times STEPS steps without the profiler
+(wall ms/step), then takes as many again under ``torch.profiler``.
+It prints the device's busy time per step (the union of the intervals of
+every kernel and copy on the card), the device's idle share against the
+unprofiled wall time, and the device time per step of each kernel name, and
+writes the profiler's table into ``DIR/profile_canonical_step.txt``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from chip_smoke import CANONICAL, canonical_training, gpu_name_and_power, log
+
+STEPS = 5
+
+
+def busy_us(intervals):
+    """Length of the union of ``(start, end)`` intervals."""
+    total, cur_start, cur_end = 0.0, None, None
+    for start, end in sorted(intervals):
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                total += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    if cur_end is not None:
+        total += cur_end - cur_start
+    return total
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", required=True, help="directory for the profiler's table")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_step.py: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+    log(f"nvidia-smi: {gpu_name_and_power()}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+
+    run, *_ = canonical_training(device, CANONICAL)
+    run(CANONICAL["warmup"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, host_s = run(STEPS)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / STEPS
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(STEPS)
+        torch.cuda.synchronize()
+        profiled_wall_ms = 1e3 * (time.perf_counter() - t0) / STEPS
+
+    device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not device_events:
+        raise AssertionError("the profiler saw no device activity")
+    busy_ms = busy_us((e.time_range.start, e.time_range.end) for e in device_events)
+    busy_ms /= 1e3 * STEPS
+    by_name = collections.Counter()
+    for e in device_events:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3 / STEPS
+
+    os.makedirs(args.out, exist_ok=True)
+    path = os.path.join(args.out, "profile_canonical_step.txt")
+    with open(path, "w") as f:
+        f.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=60))
+    log(f"device ms/step by kernel name ({STEPS} profiled steps):")
+    for name, ms in by_name.most_common(30):
+        log(f"  {ms:8.4f}  {name[:110]}")
+    log(json.dumps(dict(
+        steps=STEPS, wall_ms_per_step=wall_ms,
+        host_batch_ms_per_step=1e3 * host_s / STEPS,
+        profiled_wall_ms_per_step=profiled_wall_ms,
+        device_busy_ms_per_step=busy_ms,
+        device_idle_share=1.0 - busy_ms / wall_ms,
+        table=path,
+    )))
+
+
+if __name__ == "__main__":
+    main()

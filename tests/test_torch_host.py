@@ -1,0 +1,137 @@
+"""The port's copied host modules against the JAX package's originals.
+
+``cunvsm_torch`` copies its numpy host modules rather than importing them
+(importing ``cunvsm_tpu`` imports jax); these tests hold the copies to the
+originals: the config dataclasses and enums, the batches that
+``TextEntitySource`` yields for one seed, corpus building, the synthetic
+corpora and the MAP metric.
+"""
+
+import dataclasses
+import enum
+
+import numpy as np
+import pytest
+import torch
+
+import cunvsm_tpu.config as jconfig
+import cunvsm_torch.config as tconfig
+from cunvsm_tpu.data import corpus as jcorpus
+from cunvsm_tpu.data import instances as jinst
+from cunvsm_tpu.data import synth as jsynth
+from cunvsm_tpu.data import text as jtext
+from cunvsm_tpu.query import metrics as jmetrics
+from cunvsm_torch.data import corpus as tcorpus
+from cunvsm_torch.data import instances as tinst
+from cunvsm_torch.data import synth as tsynth
+from cunvsm_torch.data import text as ttext
+from cunvsm_torch.io import trec as ttrec
+from cunvsm_torch.query import metrics as tmetrics
+from tests.torch_parity import twin
+
+torch.set_num_threads(1)
+
+
+def _enum_items(module):
+    return {
+        name: [(m.name, m.value) for m in cls]
+        for name, cls in vars(module).items()
+        if isinstance(cls, type) and issubclass(cls, enum.Enum) and cls is not enum.Enum
+    }
+
+
+def test_config_enums_match():
+    assert _enum_items(tconfig) == _enum_items(jconfig)
+    assert {k: (a.value, b and b.value) for k, (a, b) in tconfig.UPDATE_METHOD_NAMES.items()} == {
+        k: (a.value, b and b.value) for k, (a, b) in jconfig.UPDATE_METHOD_NAMES.items()
+    }
+
+
+@pytest.mark.parametrize("name", ["ModelDesc", "AdamConfig", "TrainConfig", "DataConfig"])
+def test_config_fields_and_defaults_match(name):
+    t, j = getattr(tconfig, name)(), getattr(jconfig, name)()
+    assert [f.name for f in dataclasses.fields(t)] == [f.name for f in dataclasses.fields(j)]
+    assert twin(t) == j
+
+
+def test_config_resolution_matches():
+    for kw in (
+        {},
+        dict(stream_dtype="bfloat16", window_sum_dtype="bfloat16"),
+        dict(stream_dtype="bfloat16", cross_chip_reduce_dtype="float32"),
+        dict(learning_rate=0.0, update_method=tconfig.UpdateMethod.SGD),
+    ):
+        t = tconfig.TrainConfig(**kw)
+        j = twin(t)
+        for m in ("resolved_stream_dtype", "resolved_accum_dtype",
+                  "resolved_window_sum_dtype", "resolved_cross_chip_reduce_dtype",
+                  "resolved_learning_rate"):
+            assert getattr(t, m)() == getattr(j, m)(), m
+    with pytest.raises(ValueError):
+        tconfig.TrainConfig(window_sum_dtype="bfloat16")
+    assert tconfig.config_to_json(tconfig.TrainConfig()) == jconfig.config_to_json(jconfig.TrainConfig())
+
+
+DOCS = [
+    (f"d{i}", " ".join(f"w{(i * 7 + j * 3) % 23} the and" for j in range(8 + i % 5)))
+    for i in range(30)
+]
+
+
+def _both_corpora(window=4):
+    cfg = dict(max_vocabulary_size=0, min_document_frequency=0, max_document_frequency=0)
+    j = jcorpus.build_corpus(DOCS, jconfig.DataConfig(**cfg), window_size=window,
+                             stopwords=jtext.lemur_stopwords())
+    t = tcorpus.build_corpus(DOCS, tconfig.DataConfig(**cfg), window_size=window,
+                             stopwords=ttext.lemur_stopwords())
+    return j, t
+
+
+def test_corpus_build_matches():
+    j, t = _both_corpora()
+    assert ttext.lemur_stopwords() == jtext.lemur_stopwords()
+    assert t.vocab.terms == j.vocab.terms
+    assert t.docnos == j.docnos
+    for f in ("tokens", "doc_offsets", "index_lengths"):
+        np.testing.assert_array_equal(getattr(t, f), getattr(j, f))
+    np.testing.assert_array_equal(t.vocab.term_freq, j.vocab.term_freq)
+
+
+@pytest.mark.parametrize("shuffle,fw", [
+    (True, "uniform"), (True, "self_information"), (False, "uniform"),
+])
+def test_text_entity_source_batches_match(shuffle, fw):
+    jc, tc = _both_corpora()
+    kw = dict(batch_size=16, shuffle=shuffle, seed=5)
+    js = jinst.TextEntitySource(jc, feature_weighting=jinst.FeatureWeighting(fw), **kw)
+    ts = tinst.TextEntitySource(tc, feature_weighting=tinst.FeatureWeighting(fw), **kw)
+    assert ts.batches_per_epoch() == js.batches_per_epoch() > 0
+    for _ in range(2):  # two epochs: the RNG streams stay in step
+        for jb, tb in zip(js.epoch_batches(), ts.epoch_batches(), strict=True):
+            for f in ("features", "feature_weights", "labels", "weights"):
+                np.testing.assert_array_equal(getattr(tb, f), getattr(jb, f))
+
+
+def test_synthetic_corpora_match():
+    j = jsynth.zipf_corpus(64, 16, vocab_size=128, seed=3)
+    t = tsynth.zipf_corpus(64, 16, vocab_size=128, seed=3)
+    np.testing.assert_array_equal(t.tokens, j.tokens)
+    np.testing.assert_array_equal(t.vocab.term_freq, j.vocab.term_freq)
+    j = jsynth.uniform_corpus(8, 12, 50, window_size=4)
+    t = tsynth.uniform_corpus(8, 12, 50, window_size=4)
+    np.testing.assert_array_equal(t.tokens, j.tokens)
+
+
+def test_metrics_and_run_io_match(tmp_path):
+    rng = np.random.RandomState(0)
+    docs = [f"d{i}" for i in range(40)]
+    run = {f"q{q}": [(d, float(s)) for d, s in zip(docs, rng.randn(40))] for q in range(5)}
+    for q in run:
+        run[q].sort(key=lambda x: -x[1])
+    qrels = {f"q{q}": {d: int(rng.rand() < 0.2) for d in docs} for q in range(6)}
+    measures = ("map", "p_10", "ndcg_10", "recall_1000")
+    assert tmetrics.evaluate_run(run, qrels, measures) == jmetrics.evaluate_run(run, qrels, measures)
+    path = str(tmp_path / "run.txt")
+    ttrec.write_run(run, path)
+    back = ttrec.read_run(path)
+    assert {q: [d for d, _ in r] for q, r in back.items()} == {q: [d for d, _ in r] for q, r in run.items()}

@@ -1,0 +1,164 @@
+"""The port's two kernel modules against the JAX package's Pallas kernels.
+
+Here, on the CPU, each wrapper runs its plain PyTorch version; the Pallas
+kernels run in interpret mode.  The Triton kernels themselves run only on
+the card: the ``cuda`` tests below compare them with the plain versions
+there and skip elsewhere.
+"""
+
+import inspect
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cunvsm_tpu.ops.adam_sweep import _sweep_pallas
+from cunvsm_tpu.ops.cast import _cast_pallas
+from cunvsm_torch.ops import adam_sweep, cast
+
+torch.set_num_threads(1)
+
+HYPER = dict(lam=0.01 / 51200, beta1=0.9, beta2=0.999, eps=1e-6)
+
+
+def _sweep_inputs(rng, shape, dtype):
+    s = rng.randn(*shape) * 1e-3
+    m = rng.randn(*shape) * 1e-4
+    v = np.abs(rng.randn(*shape)) * 1e-7
+    p = rng.uniform(-0.1, 0.1, shape)
+    return [x.astype(dtype) for x in (s, m, v, p)]
+
+
+@pytest.mark.parametrize("shape", [(37, 12), (600, 300), (1030, 256)])
+def test_sweep_plain_matches_pallas_interpret_f64(shape):
+    s, m, v, p = _sweep_inputs(np.random.RandomState(0), shape, np.float64)
+    scale = 1e-3 * 0.0316
+    jm, jv, jp = _sweep_pallas(
+        jnp.asarray(p), jnp.asarray(m), jnp.asarray(v), jnp.asarray(s), scale,
+        interpret=True, **HYPER,
+    )
+    tm, tv, tp, ts = (torch.from_numpy(x.copy()) for x in (m, v, p, s))
+    before = adam_sweep.fused_adam_dense_sweep.launches
+    adam_sweep.fused_adam_dense_sweep(
+        tp, tm, tv, ts, torch.tensor(scale, dtype=torch.float64), **HYPER
+    )
+    assert adam_sweep.fused_adam_dense_sweep.launches == before  # plain path
+    np.testing.assert_array_equal(ts.numpy(), s)  # read only
+    for j, t in ((jm, tm), (jv, tv), (jp, tp)):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0, atol=1e-14)
+
+
+def test_sweep_plain_f32_near_pallas_interpret():
+    s, m, v, p = _sweep_inputs(np.random.RandomState(1), (257, 300), np.float32)
+    jm, jv, jp = _sweep_pallas(
+        jnp.asarray(p), jnp.asarray(m), jnp.asarray(v), jnp.asarray(s),
+        jnp.float32(3e-5), interpret=True, **HYPER,
+    )
+    tm, tv, tp, ts = (torch.from_numpy(x.copy()) for x in (m, v, p, s))
+    adam_sweep.fused_adam_dense_sweep(tp, tm, tv, ts, torch.tensor(3e-5), **HYPER)
+    # atol scales with each tensor (v' is about 1e-7): a fixed 1e-7 would not
+    # see a wrong v'.
+    for j, t in ((jm, tm), (jv, tv), (jp, tp)):
+        j = np.asarray(j)
+        np.testing.assert_allclose(t.numpy(), j, rtol=1e-6, atol=1e-6 * np.abs(j).max())
+
+
+@pytest.mark.parametrize("shape", [(2050, 300), (7, 256), (1, 3)])
+def test_cast_plain_bitwise_equals_pallas_interpret(shape):
+    rng = np.random.RandomState(2)
+    x = (rng.randn(*shape) * np.exp(rng.uniform(-20, 20, shape))).astype(np.float32)
+    # Exact ties of the round-to-nearest-even rule.
+    x.reshape(-1)[: min(4, x.size)] = np.array(
+        [1.00390625, 1.01171875, -1.00390625, 3.0e38], np.float32
+    )[: min(4, x.size)]
+    j = np.asarray(_cast_pallas(jnp.asarray(x), jnp.bfloat16, interpret=True))
+    before = cast.cast_table.launches
+    t = cast.cast_table(torch.from_numpy(x), torch.bfloat16)
+    assert cast.cast_table.launches == before
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t.view(torch.int16).numpy(), j.view(np.int16))
+
+
+def test_cast_of_same_dtype_is_identity():
+    x = torch.ones(3, 4)
+    assert cast.cast_table(x, torch.float32) is x
+
+
+@pytest.mark.parametrize("wrapper", ["sweep", "cast"])
+def test_non_cpu_tensor_never_takes_the_plain_version(wrapper):
+    """A tensor that is not on the CPU goes to the kernel launcher, which
+    raises here (no card, no triton); it is never routed to the plain
+    version and the launch count does not move."""
+    x = torch.empty((4, 8), device="meta")
+    if wrapper == "sweep":
+        fn, call = adam_sweep.fused_adam_dense_sweep, lambda: adam_sweep.fused_adam_dense_sweep(
+            x, x, x, x, torch.empty((), device="meta"), **HYPER)
+    else:
+        fn, call = cast.cast_table, lambda: cast.cast_table(x, torch.bfloat16)
+    before = fn.launches
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        call()
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("module,names,branch", [
+    (adam_sweep, ("fused_adam_dense_sweep", "_launch_sweep", "_sweep_kernel"),
+     "if table.is_cuda:"),
+    (cast, ("cast_table", "_launch_cast", "_cast_kernel"), "if x.is_cuda:"),
+])
+def test_dispatch_has_no_fallback(module, names, branch):
+    """The dispatch branches on the tensor's device only: no try/except
+    that could fall back to the plain version, no environment switch."""
+    for name in names:
+        src = inspect.getsource(getattr(module, name))
+        for word in ("try:", "except", "environ", "getenv"):
+            assert word not in src, (name, word)
+    assert branch in inspect.getsource(getattr(module, names[0]))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(65536, 300), (262144, 256), (1000, 3)])
+def test_sweep_kernel_matches_plain_on_card(cuda, shape):
+    """Bitwise: the kernel computes the plain version's IEEE operations in
+    its order (``_rn`` division and square root, no FMA contraction).  Half
+    the gradient rows are zero, so there agg is the L2 term alone, and v is
+    of the order of s**2: a kernel that drops lam or never stores v' fails."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    s = torch.randn(shape, device=cuda, generator=g) * 1e-3
+    s[shape[0] // 2:] = 0.0
+    m = torch.randn(shape, device=cuda, generator=g) * 1e-4
+    v = torch.rand(shape, device=cuda, generator=g) * 2e-6
+    p = (torch.rand(shape, device=cuda, generator=g) - 0.5) * 0.2
+    scale = torch.tensor(3e-5, device=cuda)
+    ref = [t.clone() for t in (p, m, v)]
+    no_l2 = [t.clone() for t in (p, m, v)]
+    adam_sweep.sweep_plain(*ref, s, scale, **HYPER)
+    adam_sweep.sweep_plain(*no_l2, s, scale, **{**HYPER, "lam": 0.0})
+    for before, after in zip((p, m, v), ref):
+        assert not torch.equal(before, after)
+    assert not torch.equal(ref[0], no_l2[0]) and not torch.equal(ref[1], no_l2[1])
+    before = adam_sweep.fused_adam_dense_sweep.launches
+    adam_sweep.fused_adam_dense_sweep(p, m, v, s, scale, **HYPER)
+    torch.cuda.synchronize()
+    assert adam_sweep.fused_adam_dense_sweep.launches == before + 1
+    for r, t in zip(ref, (p, m, v)):
+        assert torch.equal(t, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(65536, 300), (5, 7)])
+def test_cast_kernel_bitwise_on_card(cuda, shape):
+    x = torch.randn(shape, device=cuda) * 1e3
+    before = cast.cast_table.launches
+    y = cast.cast_table(x, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert cast.cast_table.launches == before + 1
+    assert torch.equal(y.view(torch.int16), x.to(torch.bfloat16).view(torch.int16))

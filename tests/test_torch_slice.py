@@ -1,0 +1,189 @@
+"""The port's slice end to end on the CPU: train, rank, score; and package
+hygiene.
+
+* ``train_model`` on the three-topic corpus of tests/test_train_integration.py
+  (its own copy of the generator, the same configuration) lowers the cost
+  and ranks same-topic documents first (MAP > 0.8);
+* ``QueryEngine.rank`` returns the JAX engine's ranking on the same tables;
+* ``cunvsm_torch`` imports neither jax nor ``cunvsm_tpu``.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cunvsm_tpu.models.params import ModelParams as JModelParams
+from cunvsm_tpu.query.engine import QueryEngine as JQueryEngine
+from cunvsm_torch.config import (
+    AdamConfig,
+    AdamMode,
+    DataConfig,
+    ModelDesc,
+    Nonlinearity,
+    TrainConfig,
+    UpdateMethod,
+)
+from cunvsm_torch.data.corpus import build_corpus
+from cunvsm_torch.data.instances import TextEntitySource
+from cunvsm_torch.models.objectives import TextEntityBatch
+from cunvsm_torch.models.params import params_from_numpy, params_to_numpy
+from cunvsm_torch.query.engine import QueryEngine
+from cunvsm_torch.query.metrics import evaluate_run
+from cunvsm_torch.train.trainer import train_model
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+TOPICS = {
+    "space": "rocket orbit launch satellite astronaut mission gravity".split(),
+    "cooking": "recipe oven flour butter bake sugar yeast".split(),
+    "sports": "goal match player referee score stadium league".split(),
+}
+
+
+def synthetic_corpus(num_docs_per_topic=6, doc_len=30, seed=0):
+    rng = np.random.RandomState(seed)
+    docs = []
+    labels = {}
+    common = "the and with from this that".split()
+    for topic, words in TOPICS.items():
+        for i in range(num_docs_per_topic):
+            body = [
+                words[rng.randint(len(words))]
+                if rng.rand() < 0.7
+                else common[rng.randint(len(common))]
+                for _ in range(doc_len)
+            ]
+            docno = f"{topic}_{i}"
+            docs.append((docno, " ".join(body)))
+            labels[docno] = topic
+    return docs, labels
+
+
+@pytest.fixture(scope="module")
+def trained():
+    docs, labels = synthetic_corpus()
+    corpus = build_corpus(
+        docs,
+        DataConfig(max_vocabulary_size=0, min_document_frequency=0, max_document_frequency=0),
+        window_size=4,
+    )
+    desc = ModelDesc(
+        word_repr_size=24, entity_repr_size=16,
+        nonlinearity=Nonlinearity.TANH, bias_negative_samples=True,
+    )
+    cfg = TrainConfig(
+        num_epochs=30, batch_size=32, window_size=4, num_random_entities=5,
+        learning_rate=0.01, regularization_lambda=0.01,
+        update_method=UpdateMethod.ADAM,
+        adam=AdamConfig(mode=AdamMode.DENSE_UPDATE_DENSE_VARIANCE), seed=1,
+    )
+    return corpus, labels, cfg, train_model(desc, cfg, corpus, torch.device("cpu"))
+
+
+def test_train_model_lowers_the_cost(trained):
+    corpus, _, cfg, result = trained
+    costs = result.epoch_costs
+    assert len(costs) == cfg.num_epochs
+    assert all(np.isfinite(costs))
+    assert costs[-1] < 0.6 * costs[0]
+    assert result.steps == cfg.num_epochs * TextEntitySource(corpus, 32).batches_per_epoch()
+    assert int(result.opt_state.word.t) == result.steps + 1
+
+
+def test_ranking_quality(trained):
+    corpus, labels, _, result = trained
+    engine = QueryEngine(result.params, corpus.vocab.terms, corpus.docnos, nonlinearity="tanh")
+    run = engine.rank({t: words[:3] for t, words in TOPICS.items()}, top_k=len(corpus.docnos))
+    qrels = {t: {d: int(labels[d] == t) for d in corpus.docnos} for t in TOPICS}
+    metrics = evaluate_run(run, qrels, measures=("map", "p_10"))
+    assert metrics["map"] > 0.8, metrics
+
+
+@pytest.mark.parametrize("nonlinearity,bias,self_info", [
+    ("tanh", 0.0, False), (None, 1.0, True),
+])
+def test_rank_matches_jax_engine(trained, nonlinearity, bias, self_info):
+    corpus, _, _, result = trained
+    np_params = params_to_numpy(result.params)
+    kw = dict(
+        term_frequencies=corpus.vocab.term_freq, total_terms=corpus.vocab.total_terms,
+        nonlinearity=nonlinearity, bias_coefficient=bias, self_information=self_info,
+    )
+    j = JQueryEngine(JModelParams(*(jnp.asarray(x) for x in np_params)),
+                     corpus.vocab.terms, corpus.docnos, **kw)
+    t = QueryEngine(params_from_numpy(np_params), corpus.vocab.terms, corpus.docnos, **kw)
+    rng = np.random.RandomState(0)
+    terms = corpus.vocab.terms
+    queries = {f"q{i}": [terms[x] for x in rng.randint(0, len(terms), 3)] for i in range(8)}
+    queries["oov"] = ["not-a-term"]
+    jr, tr = j.rank(queries, top_k=10), t.rank(queries, top_k=10)
+    assert tr.keys() == jr.keys() and "oov" not in tr
+    for q in jr:
+        np.testing.assert_allclose([s for _, s in tr[q]], [s for _, s in jr[q]], rtol=0, atol=1e-6)
+        assert [d for d, _ in tr[q]] == [d for d, _ in jr[q]]
+
+
+def test_batch_from_numpy():
+    docs, _ = synthetic_corpus(2)
+    corpus = build_corpus(docs, DataConfig(max_vocabulary_size=0, min_document_frequency=0,
+                                           max_document_frequency=0), window_size=4)
+    nb = next(TextEntitySource(corpus, 8).epoch_batches())
+    b = TextEntityBatch.from_numpy(nb, "cpu", torch.float64)
+    assert b.features.dtype == b.labels.dtype == torch.int64
+    assert b.weights.dtype == b.feature_weights.dtype == torch.float64
+    np.testing.assert_array_equal(b.features.numpy(), nb.features)
+
+
+FORBIDDEN = ("jax", "jaxlib", "cunvsm_tpu", "triton")
+
+
+def test_port_never_imports_jax():
+    """Import every module of the port in a fresh interpreter and check
+    that it loaded neither jax nor the JAX package (nor triton, which only
+    a kernel launch imports)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "before = set(sys.modules)\n"
+        "import cunvsm_torch\n"
+        "for m in pkgutil.walk_packages(cunvsm_torch.__path__, 'cunvsm_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        f"bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print(len([m for m in sys.modules if m.startswith('cunvsm_torch')]))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20
+
+
+def test_port_sources_name_no_jax_import():
+    """The same rule read from the sources, which also holds where jax is
+    already loaded: no import statement of the port names a forbidden
+    package."""
+    import ast
+
+    root = os.path.join(REPO, "cunvsm_torch")
+    files = [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs if f.endswith(".py")]
+    files += [os.path.join(REPO, f) for f in ("chip_smoke.py", "profile_torch_step.py")]
+    for path in files:
+        tree = ast.parse(open(path).read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                allowed = top == "triton" and path.endswith("triton_build.py")
+                assert allowed or top not in FORBIDDEN, (path, name)

@@ -1,0 +1,192 @@
+"""The port's full_adam training step against the JAX package.
+
+Three steps of the JAX package (objective + Optimizer.apply, fed fixed
+ids) against three steps of the port's ``make_train_step`` with the same
+ids injected: all four tables, m, v and t agree to rtol 1e-9 / atol 1e-12
+in float64 (the segment sums add in another order).  Under bfloat16
+streams the two frameworks round the window sums at different places, so
+one step is held to rtol 2e-2 on the cost and 2e-2 of the max-abs on the
+dense accumulations.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cunvsm_tpu.models import objectives as jobj
+from cunvsm_tpu.optim import updates as jupd
+from cunvsm_tpu.train import step as jstep
+from cunvsm_torch.config import AdamConfig, AdamMode, UpdateMethod
+from cunvsm_torch.optim import updates as tupd
+from cunvsm_torch.train import step as tstep
+from tests.torch_parity import (
+    B, DESCS, K, N, both_batches, both_params, numpy_batch, numpy_params, to_np,
+    train_config, twin,
+)
+
+torch.set_num_threads(1)
+
+
+def _jax_step(jparams, jstate, jbatch, ids, pooled, desc, cfg, stride):
+    jdesc, jcfg = twin(desc), twin(cfg)
+    kw = dict(
+        stream_dtype=jcfg.resolved_stream_dtype(),
+        uniform_feature_weights=jcfg.uniform_feature_weights,
+        window_sum_dtype=jcfg.resolved_window_sum_dtype(),
+    )
+    if pooled:
+        cost, _, grads = jobj.text_entity_cost_and_grads_pooled(
+            jparams, jbatch, jnp.asarray(ids), K, jdesc, pool_stride=stride, **kw
+        )
+    else:
+        entity_ids = jnp.concatenate([jbatch.labels[:, None], jnp.asarray(ids)], axis=1)
+        cost, _, grads = jobj.text_entity_cost_and_grads(
+            jparams, jbatch, entity_ids, jdesc, factored_entity_grads=True, **kw
+        )
+    lam = jstep.scaled_regularization_lambda(jcfg, jstep.ObjectiveKind.TEXT_ENTITY)
+    jparams, jstate = jupd.Optimizer(jcfg).apply(
+        jparams, jstate, grads, jcfg.resolved_learning_rate(), lam
+    )
+    return jparams, jstate, cost
+
+
+def _draw_ids(rng, pooled, pool):
+    if pooled:
+        return rng.randint(0, N, pool).astype(np.int32)
+    return rng.randint(0, N, (B, K)).astype(np.int32)
+
+
+@pytest.mark.parametrize("desc_name", ["nvsm", "lse"])
+@pytest.mark.parametrize("pooled", [False, True])
+def test_three_steps_match_jax(desc_name, pooled):
+    desc = DESCS[desc_name]
+    cfg = train_config(
+        negative_pool_size=8 if pooled else 0,
+        uniform_feature_weights=desc_name == "nvsm",
+    )
+    pool, stride = tstep.resolve_negative_sampling(cfg, desc, B, N)
+    assert (pool > 0) == pooled
+    assert (pool, stride) == jstep.resolve_negative_sampling(twin(cfg), twin(desc), B, N)
+    jp, tp = both_params(numpy_params(11))
+    jstate = jupd.Optimizer(twin(cfg)).init(jp)
+    tstate = tupd.Optimizer(cfg).init(tp)
+    step = tstep.make_train_step(desc, cfg, "cpu", torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(12)
+    for i in range(3):
+        jb, tb = both_batches(numpy_batch(20 + i, weighted=desc_name == "lse"))
+        ids = _draw_ids(rng, pooled, pool)
+        jp, jstate, jcost = _jax_step(jp, jstate, jb, ids, pooled, desc, cfg, stride)
+        tcost = step(tp, tstate, tb, negative_ids=torch.from_numpy(ids).long())
+        np.testing.assert_allclose(float(tcost), float(jcost), rtol=1e-9)
+    for j, t in zip(jp, tp):
+        np.testing.assert_allclose(to_np(t), np.asarray(j), rtol=1e-9, atol=1e-12)
+    for js, ts in zip(jstate, tstate):
+        for j, t in zip(js, ts):
+            if np.asarray(j).dtype.kind == "i":
+                np.testing.assert_array_equal(to_np(t), np.asarray(j))
+                assert int(t) == 4  # t starts at 1, three steps
+            else:
+                np.testing.assert_allclose(to_np(t), np.asarray(j), rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("pooled", [False, True])
+def test_bf16_streams_one_step_near_jax(pooled):
+    desc = DESCS["nvsm"]
+    cfg = train_config(
+        negative_pool_size=8 if pooled else 0, stream_dtype="bfloat16",
+        window_sum_dtype="bfloat16", uniform_feature_weights=True,
+    )
+    pool, stride = tstep.resolve_negative_sampling(cfg, desc, B, N)
+    jp, tp = both_params(numpy_params(13, dtype=np.float32))
+    jb, tb = both_batches(numpy_batch(14, dtype=np.float32))
+    ids = _draw_ids(np.random.RandomState(15), pooled, pool)
+    kw = dict(stream_dtype="bfloat16", uniform_feature_weights=True,
+              window_sum_dtype="bfloat16")
+    tkw = dict(stream_dtype=torch.bfloat16, uniform_feature_weights=True,
+               window_sum_dtype=torch.bfloat16)
+    tids = torch.from_numpy(ids).long()
+    if pooled:
+        jcost, _, jg = jobj.text_entity_cost_and_grads_pooled(
+            jp, jb, jnp.asarray(ids), K, twin(desc), pool_stride=stride, **kw)
+        tcost, _, tg = tstep.obj.text_entity_cost_and_grads_pooled(
+            tp, tb, tids, K, desc, pool_stride=stride, **tkw)
+    else:
+        eids = np.concatenate([np.asarray(jb.labels)[:, None], ids], axis=1)
+        jcost, _, jg = jobj.text_entity_cost_and_grads(
+            jp, jb, jnp.asarray(eids), twin(desc), factored_entity_grads=True, **kw)
+        tcost, _, tg = tstep.obj.text_entity_cost_and_grads(
+            tp, tb, torch.cat([tb.labels[:, None], tids], 1), desc, **tkw)
+    assert tcost.dtype == torch.float32
+    np.testing.assert_allclose(float(tcost), float(jcost), rtol=2e-2)
+    for rows, jd, td in ((64, jg.word, tg.word), (N, jg.entity, tg.entity)):
+        j = np.asarray(jupd._sorted_segment_accumulate(rows, jd, "bfloat16"))
+        t = to_np(tupd._sorted_segment_accumulate(rows, td, torch.bfloat16))
+        assert t.dtype == np.float32
+        np.testing.assert_allclose(t, j, rtol=0, atol=2e-2 * np.abs(j).max())
+
+
+@pytest.mark.parametrize("stream", [None, "bfloat16"])
+def test_accumulation_matches_jax_on_same_descriptors(stream):
+    """Duplicates accumulate; under a stream dtype rows and weights round
+    before the product and widen before the sum."""
+    rng = np.random.RandomState(16)
+    grads = [rng.randn(B, 6).astype(np.float32), rng.randn(5, 6).astype(np.float32)]
+    idx = [rng.randint(0, 9, (B, 3)).astype(np.int32), rng.randint(0, 9, (5, 1)).astype(np.int32)]
+    wts = [rng.randn(B, 3).astype(np.float32), None]
+    jd = tuple(jobj.SparseGrad(jnp.asarray(g), jnp.asarray(i), None if w is None else jnp.asarray(w))
+               for g, i, w in zip(grads, idx, wts))
+    td = tuple(tupd.SparseGrad(torch.from_numpy(g), torch.from_numpy(i).long(),
+                               None if w is None else torch.from_numpy(w))
+               for g, i, w in zip(grads, idx, wts))
+    j = np.asarray(jupd._sorted_segment_accumulate(9, jd, stream))
+    t = tupd._sorted_segment_accumulate(9, td, None if stream is None else torch.bfloat16).numpy()
+    # float32 sums of the same (bf16-rounded) terms in another order.
+    np.testing.assert_allclose(t, j, rtol=1e-5, atol=1e-5)
+
+
+def test_bias_correction_matches_jax():
+    for t in (1, 2, 10, 1000):
+        j = jupd._adam_bias_correction(0.9, 0.999, jnp.asarray(t, jnp.int32), jnp.float64)
+        p = tupd._adam_bias_correction(0.9, 0.999, torch.tensor(t, dtype=torch.int32), torch.float64)
+        np.testing.assert_allclose(float(p), float(j), rtol=1e-15)
+
+
+def test_opt_state_round_trips_through_numpy():
+    jp, _ = both_params(numpy_params(17))
+    cfg = train_config()
+    jstate = jupd.Optimizer(twin(cfg)).init(jp)
+    tstate = tupd.opt_state_from_numpy(jstate)
+    assert tstate.word.t.dtype == torch.int32 and int(tstate.word.t) == 1
+    back = tupd.opt_state_to_numpy(tstate)
+    for js, bs in zip(jstate, back):
+        for j, b in zip(js, bs):
+            np.testing.assert_array_equal(b, np.asarray(j))
+
+
+@pytest.mark.parametrize("method,mode", [
+    (UpdateMethod.SGD, AdamMode.DENSE_UPDATE_DENSE_VARIANCE),
+    (UpdateMethod.ADAGRAD, AdamMode.DENSE_UPDATE_DENSE_VARIANCE),
+    (UpdateMethod.ADAM, AdamMode.SPARSE),
+    (UpdateMethod.ADAM, AdamMode.DENSE_UPDATE),
+])
+def test_unported_optimizers_raise(method, mode):
+    cfg = train_config(update_method=method, adam=AdamConfig(mode=mode))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tupd.Optimizer(cfg)
+
+
+def test_sampled_step_draws_in_range_and_trains():
+    """Without injected ids the step draws from its generator; the cost
+    stays finite and the tables move."""
+    desc = DESCS["nvsm"]
+    for pool_size in (0, 8):
+        cfg = train_config(negative_pool_size=pool_size, uniform_feature_weights=True)
+        _, tp = both_params(numpy_params(18))
+        before = tp.entity_reprs.clone()
+        state = tupd.Optimizer(cfg).init(tp)
+        step = tstep.make_train_step(desc, cfg, "cpu", torch.Generator().manual_seed(1))
+        _, tb = both_batches(numpy_batch(19))
+        for _ in range(2):
+            assert torch.isfinite(step(tp, state, tb))
+        assert not torch.equal(before, tp.entity_reprs)
