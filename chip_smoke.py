@@ -5,13 +5,17 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py        # about a minute
 
-It builds both Triton kernels from the sources in the checkout (their cache
-goes under build/) and runs the port's main path:
+It builds both kernels from the sources in the checkout: the sweep with
+Triton (its cache goes under build/triton) and the cast with nvcc (into
+build/cuda), and runs the port's main path:
 
   A  each kernel against its plain PyTorch version at the shapes of the
      main path, bitwise (sweep: m', v' and p' on [65536, 300] and
-     [262144, 256] float32; cast: [65536, 300]), with the time of each
-     (CUDA events, median of 40 after warm-up);
+     [262144, 256] float32; cast: [65536, 300], an operand of edge values
+     and random bit patterns with NaN checked as NaN, a slice that starts
+     one element in, and 5 elements), with the time of each (CUDA events:
+     the median of 40 single calls, and 20 calls back to back between one
+     pair of events, divided by 20);
   B0 three steps of a small configuration on the card (float32, kernels)
      against the same steps on the CPU in float64 (plain versions);
   B  the canonical NVSM configuration of bench.py at full width (V 65536,
@@ -52,7 +56,7 @@ from cunvsm_torch.data.instances import TextEntitySource
 from cunvsm_torch.data.synth import zipf_corpus
 from cunvsm_torch.models.objectives import TextEntityBatch
 from cunvsm_torch.models.params import init_params, params_from_numpy, params_to_numpy
-from cunvsm_torch.ops import adam_sweep, cast
+from cunvsm_torch.ops import adam_sweep, cast, cuda_build
 from cunvsm_torch.optim.updates import Optimizer
 from cunvsm_torch.query.engine import QueryEngine, _rank_kernel
 from cunvsm_torch.query.metrics import evaluate_run
@@ -87,10 +91,44 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> list:
     return times
 
 
-def paired_ms(kernel_fn, plain_fn):
-    """Median times (kernel, plain), measured plain, kernel, kernel, plain."""
-    p1, k1, k2, p2 = cuda_ms(plain_fn), cuda_ms(kernel_fn), cuda_ms(kernel_fn), cuda_ms(plain_fn)
-    return statistics.median(k1 + k2), statistics.median(p1 + p2)
+def back_to_back_ms(fn, calls: int = 20, reps: int = 10) -> list:
+    """ms per call of ``calls`` calls back to back between one pair of CUDA
+    events, ``reps`` times.  Unlike a pair of events around one call of a
+    kernel of tens of microseconds, this leaves the host's launch latency
+    out, as long as the host enqueues faster than the device runs."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return times
+
+
+def paired_ms(kernel_fn, plain_fn) -> dict:
+    """Times of the kernel and its plain version, measured in turns plain,
+    kernel, kernel, plain: ``ms`` and ``plain_ms`` are medians of the
+    back-to-back figures, ``*_per_call`` medians of single calls."""
+    runs = {"kernel": ([], []), "plain": ([], [])}
+    for side in ("plain", "kernel", "kernel", "plain"):
+        fn = kernel_fn if side == "kernel" else plain_fn
+        runs[side][0].extend(cuda_ms(fn))
+        runs[side][1].extend(back_to_back_ms(fn))
+    med = statistics.median
+    return dict(
+        ms=med(runs["kernel"][1]), plain_ms=med(runs["plain"][1]),
+        ms_per_call=med(runs["kernel"][0]), plain_ms_per_call=med(runs["plain"][0]),
+    )
+
+
+def format_ms(t: dict) -> str:
+    return (f"kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} (20 back to back); "
+            f"per call kernel {t['ms_per_call']:.4f} plain {t['plain_ms_per_call']:.4f}")
 
 
 def canonical_desc_cfg(sizes):
@@ -157,42 +195,92 @@ def check_sweep(device, rows, dim, gen):
     return (p, m, v, s, scale), got, err
 
 
+# float32 bit patterns at the edges of the float32 -> bfloat16 rounding.
+CAST_EDGE_BITS = (
+    0x3F808000, 0x3F818000, 0xBF808000,  # exact ties: round to the even neighbour
+    0x00000001, 0x80000001, 0x00008000, 0x007FFFFF,  # subnormals (a tie; the largest)
+    0x00000000, 0x80000000, 0x7F800000, 0xFF800000,  # +-0, +-inf
+    0x7F7F7FFF, 0x7F7F8000, 0x7F7FFFFF, 0xFF7FFFFF,  # largest finite bf16, then inf
+    0x7FC00000, 0xFFC00000, 0x7F800001, 0x7FC00001, 0x7FFFFFFF,  # NaNs
+)
+
+
+def cast_operands(device, sizes, gen):
+    """The cast's operands: the main path's table, an operand of edge values
+    and random bit patterns (odd length), a slice of the table that starts
+    one element in (misaligned, odd length) and 5 elements."""
+    x = torch.randn((sizes["num_words"], sizes["word_dim"]), device=device, generator=gen)
+    x = x * torch.exp(torch.rand(x.shape, device=device, generator=gen) * 40 - 20)
+    edge = torch.tensor(np.array(CAST_EDGE_BITS, np.uint32).view(np.int32), device=device)
+    bits = torch.randint(-2**31, 2**31, ((1 << 20) + 1,), device=device, generator=gen,
+                         dtype=torch.int64).to(torch.int32)
+    edge = torch.cat([edge, bits]).view(torch.float32)
+    return [
+        (f"[{x.shape[0]}, {x.shape[1]}]", x), (f"edge values + random bits [{edge.numel()}]", edge),
+        (f"x.view(-1)[1:] [{x.numel() - 1}]", x.view(-1)[1:]), ("[5]", x.view(-1)[:5].clone()),
+    ]
+
+
+def check_cast(name, x):
+    """The cast kernel against ``.to(torch.bfloat16)``: bitwise where the
+    result is not NaN, NaN where it is NaN.  Returns the result."""
+    before = cast.cast_table.launches
+    y = cast.cast_table(x, torch.bfloat16)
+    ref = cast.cast_plain(x, torch.bfloat16)
+    torch.cuda.synchronize()
+    if cast.cast_table.launches != before + 1:
+        raise AssertionError(f"cast_table did not launch its kernel on {name}")
+    nan = torch.isnan(ref)
+    if not torch.equal(torch.isnan(y), nan):
+        raise AssertionError(f"cast kernel on {name}: NaN where .to(bfloat16) has none, or not")
+    yb, rb = y.view(torch.int16), ref.view(torch.int16)
+    if not torch.equal(yb[~nan], rb[~nan]):
+        bad = int((yb[~nan] != rb[~nan]).sum())
+        raise AssertionError(f"cast kernel on {name}: {bad} values differ from .to(bfloat16)")
+
+    def patterns(t):
+        return sorted(f"0x{v & 0xFFFF:04X}" for v in t[nan].cpu().unique().tolist())
+
+    log(f"A cast {name}: bitwise equal to .to(bfloat16) off NaN; {int(nan.sum())} NaN, "
+        f"bits kernel {patterns(yb)} plain {patterns(rb)}")
+    return y
+
+
 def phase_a(device, sizes):
     """Each kernel against its plain version at the main path's shapes."""
     out = {}
     gen = torch.Generator(device=device).manual_seed(0)
-    sweep_err, sweep_ms, sweep_plain_ms = 0.0, 0.0, 0.0
+    t0 = time.perf_counter()
+    cuda_build.build_library("cast_bf16", ("cast_bf16.cu",))
+    log(f"A nvcc build of the cast: {time.perf_counter() - t0:.1f}s")
+    sweep_err, sweep_t = 0.0, {}
     for rows, dim in ((sizes["num_words"], sizes["word_dim"]),
                       (sizes["num_entities"], sizes["entity_dim"])):
         (p, m, v, s, scale), got, err = check_sweep(device, rows, dim, gen)
         sweep_err = max(sweep_err, err)
         ref = [p, m, v]
-        k_ms, p_ms = paired_ms(
+        t = paired_ms(
             lambda: adam_sweep.fused_adam_dense_sweep(*got, s, scale, **SWEEP_HYPER),
             lambda: adam_sweep.sweep_plain(*ref, s, scale, **SWEEP_HYPER),
         )
-        gbs = 28 * rows * dim / (k_ms * 1e-3) / 1e9
-        log(f"A sweep [{rows}, {dim}]: bitwise equal, max_abs_err={err:.3e} kernel_ms={k_ms:.4f} "
-            f"plain_ms={p_ms:.4f} kernel_GB/s={gbs:.0f}")
-        sweep_ms += k_ms
-        sweep_plain_ms += p_ms
+        gbs = 28 * rows * dim / (t["ms"] * 1e-3) / 1e9
+        log(f"A sweep [{rows}, {dim}]: bitwise equal, max_abs_err={err:.3e} {format_ms(t)} "
+            f"kernel_GB/s={gbs:.0f}")
+        sweep_t = {k: sweep_t.get(k, 0.0) + t[k] for k in t}
         del s, m, v, p, ref, got
-    out["sweep"] = dict(max_abs_err=sweep_err, ms=sweep_ms, plain_ms=sweep_plain_ms)
+    out["sweep"] = dict(max_abs_err=sweep_err, **sweep_t)
 
-    x = torch.randn((sizes["num_words"], sizes["word_dim"]), device=device, generator=gen)
-    x = x * torch.exp(torch.rand(x.shape, device=device, generator=gen) * 40 - 20)
-    y = cast.cast_table(x, torch.bfloat16)
-    ref = cast.cast_plain(x, torch.bfloat16)
-    torch.cuda.synchronize()
-    if not torch.equal(y.view(torch.int16), ref.view(torch.int16)):
-        raise AssertionError("cast_table kernel is not bitwise equal to .to(bfloat16)")
-    k_ms, p_ms = paired_ms(
+    operands = cast_operands(device, sizes, gen)
+    y = [check_cast(name, x) for name, x in operands][0]
+    x = operands[0][1]
+    err = float((y.float() - cast.cast_plain(x, torch.bfloat16).float()).abs().max())
+    t = paired_ms(
         lambda: cast.cast_table(x, torch.bfloat16), lambda: cast.cast_plain(x, torch.bfloat16)
     )
-    err = float((y.float() - ref.float()).abs().max())
-    log(f"A cast [{x.shape[0]}, {x.shape[1]}]: bitwise equal, kernel_ms={k_ms:.4f} "
-        f"plain_ms={p_ms:.4f} kernel_GB/s={6 * x.numel() / (k_ms * 1e-3) / 1e9:.0f}")
-    out["cast"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+    log(f"A cast {operands[0][0]}: {format_ms(t)} kernel_GB/s="
+        f"{6 * x.numel() / (t['ms'] * 1e-3) / 1e9:.0f} plain_GB/s="
+        f"{6 * x.numel() / (t['plain_ms'] * 1e-3) / 1e9:.0f}")
+    out["cast"] = dict(max_abs_err=err, **t)
     return out
 
 
@@ -388,7 +476,7 @@ def main():
 
     t0 = time.perf_counter()
     kernels = phase_a(device, CANONICAL)
-    log(f"A done in {time.perf_counter() - t0:.1f}s (first launches include the Triton builds)")
+    log(f"A done in {time.perf_counter() - t0:.1f}s (the kernels' builds included)")
     phase_b0(device)
 
     adam_sweep.fused_adam_dense_sweep.launches = 0
@@ -405,14 +493,15 @@ def main():
     phase_c(device, params_b, corpus_b)
 
     meta = {
-        "sweep": ("fused_adam_dense_sweep", "cunvsm_torch/ops/adam_sweep.py",
+        "sweep": ("fused_adam_dense_sweep", "triton", "cunvsm_torch/ops/adam_sweep.py",
                   "cunvsm_tpu/ops/adam_sweep.py:72"),
-        "cast": ("cast_table", "cunvsm_torch/ops/cast.py", "cunvsm_tpu/ops/cast.py:31"),
+        "cast": ("cast_table", "cuda", "cunvsm_torch/csrc/cast_bf16.cu",
+                 "cunvsm_tpu/ops/cast.py:31"),
     }
     print(json.dumps({"kernels": [
-        {"name": name, "route": "triton", "source": src, "replaces": rep,
+        {"name": name, "route": route, "source": src, "replaces": rep,
          "launches": launches[key], **kernels[key]}
-        for key, (name, src, rep) in meta.items()
+        for key, (name, route, src, rep) in meta.items()
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""float32 -> bfloat16 table cast: a Triton kernel for Hopper and its plain
+"""float32 -> bfloat16 table cast: a CUDA C++ kernel for Hopper and its plain
 PyTorch version.
 
 Replaces the Pallas kernel of ``cunvsm_tpu/ops/cast.py`` (``_cast_pallas`` /
@@ -8,21 +8,22 @@ window gathers (``models/objectives.py``).  The result is bitwise that of
 ``x.to(torch.bfloat16)``: round to nearest even.
 
 What bounds it on the card: device-memory bytes, 4 read and 2 written per
-element, 118 MB per step for the canonical [65536, 300] word table.
-Design: one program per BLOCK contiguous elements of the flattened table,
-a float32 load, ``.to(tl.bfloat16, fp_downcast_rounding="rtne")`` and a
-bfloat16 store; no reuse, no shared memory.
+element, 117.96 MB per step for the canonical [65536, 300] word table
+(35.2 us at 3.35 TB/s).  The kernel (``csrc/cast_bf16.cu``, built by nvcc at
+first use) runs one short block per 8192 elements; each thread keeps four
+chunks of 8 elements (two 16-byte loads each) in flight before it converts
+them and writes each chunk with one 16-byte streaming store.  The source
+says more.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
-from cunvsm_torch.ops.triton_build import check_operands, import_triton
-
-BLOCK = 2048
+from cunvsm_torch.ops import cuda_build
 
 
 def cast_plain(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -30,36 +31,37 @@ def cast_plain(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype)
 
 
-def _cast_body(x_ptr, o_ptr, n, BLOCK: "tl.constexpr"):
-    offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-    mask = offs < n
-    x = tl.load(x_ptr + offs, mask=mask)
-    y = x.to(tl.bfloat16, fp_downcast_rounding="rtne")
-    tl.store(o_ptr + offs, y, mask=mask)
+def bind(lib):
+    """The library's entry point with its C signature declared:
+    ``int cunvsm_cast_f32_bf16(const float*, __nv_bfloat16*, long long n,
+    cudaStream_t)``, which returns the launch's ``cudaError_t``."""
+    fn = lib.cunvsm_cast_f32_bf16
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.lru_cache(maxsize=None)
 def _cast_kernel():
-    # The body's `tl` is this module's global, bound here at the first
-    # launch: triton is imported only then.
-    global tl
-    triton, tl = import_triton()
-    return triton.jit(_cast_body)
+    return bind(cuda_build.load_library("cast_bf16", ("cast_bf16.cu",)))
 
 
 def _launch_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    check_operands("cast_table", torch.float32, x)
-    if dtype != torch.bfloat16:
-        raise ValueError(f"cast_table: no kernel for float32 -> {dtype}")
+    if dtype != torch.bfloat16 or x.dtype != torch.float32:
+        raise ValueError(f"cast_table: no kernel for {x.dtype} -> {dtype}")
+    if not x.is_contiguous():
+        raise ValueError("cast_table: expected a contiguous tensor")
     out = torch.empty_like(x, dtype=dtype)
-    n = x.numel()
-    _cast_kernel()[((n + BLOCK - 1) // BLOCK,)](x, out, n, BLOCK=BLOCK, num_warps=4)
+    with torch.cuda.device(x.device):
+        rc = _cast_kernel()(x.data_ptr(), out.data_ptr(), x.numel(),
+                            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.check_error(rc)
     return out
 
 
 def cast_table(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``x.to(dtype)`` for a float32 table; ``x`` itself when it already has
-    ``dtype``.  A CUDA tensor runs the Triton kernel (and raises if it
+    ``dtype``.  A CUDA tensor runs the CUDA kernel (and raises if it
     cannot); a CPU tensor runs :func:`cast_plain`; any other device raises.
     """
     if x.dtype == dtype:

@@ -1,9 +1,9 @@
 """The port's two kernel modules against the JAX package's Pallas kernels.
 
 Here, on the CPU, each wrapper runs its plain PyTorch version; the Pallas
-kernels run in interpret mode.  The Triton kernels themselves run only on
-the card: the ``cuda`` tests below compare them with the plain versions
-there and skip elsewhere.
+kernels run in interpret mode.  The kernels themselves (the Triton sweep,
+the CUDA C++ cast) run only on the card: the ``cuda`` tests below compare
+them with the plain versions there and skip elsewhere.
 """
 
 import inspect
@@ -80,6 +80,46 @@ def test_cast_plain_bitwise_equals_pallas_interpret(shape):
     np.testing.assert_array_equal(t.view(torch.int16).numpy(), j.view(np.int16))
 
 
+def _f32(bits):
+    return np.array(bits, np.uint32).view(np.float32)
+
+
+# float32 values at the edges of the float32 -> bfloat16 rounding.
+CAST_EDGES = {
+    "inf": _f32([0x7F800000, 0xFF800000, 0x3F800000, 0xC0490FDB]),
+    "subnormal": _f32([0x00000001, 0x80000001, 0x00008000, 0x00018000, 0x007FFFFF,
+                       0x00400000, 0x807FFFFF, 0x0000FFFF]),
+    "neg_zero": _f32([0x80000000, 0x00000000, 0x80000000, 0x3F800000]),
+    # 3.4e38 and the float32 maximum lie above the largest finite bfloat16
+    # (0x7F7F) by more than half an ulp and round to inf; 0x7F7F8000 is the
+    # exact tie, which rounds to the even neighbour, inf.
+    "overflow_to_inf": np.concatenate([
+        np.array([3.4e38, -3.4e38], np.float32),
+        _f32([0x7F7FFFFF, 0xFF7FFFFF, 0x7F7F8000, 0x7F7F7FFF]),
+    ]),
+    "ties": _f32([0x3F808000, 0x3F818000, 0xBF808000, 0x3F80C000, 0x4B7F8000, 0x4B7E8000]),
+    "nan": _f32([0x7FC00000, 0xFFC00000, 0x7F800001, 0x7FC00001, 0x7FFFFFFF, 0x3F800000]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CAST_EDGES))
+def test_cast_plain_edge_values_bitwise_equal_pallas_interpret(case):
+    """Edge values through the port's CPU cast and the Pallas kernel in
+    interpret mode: bitwise equal, NaN compared as NaN (its payload is not
+    part of the contract)."""
+    x = CAST_EDGES[case].reshape(2, -1)
+    j = np.asarray(_cast_pallas(jnp.asarray(x), jnp.bfloat16, interpret=True))
+    before = cast.cast_table.launches
+    t = cast.cast_table(torch.from_numpy(x), torch.bfloat16)
+    assert cast.cast_table.launches == before
+    nan = np.isnan(x)
+    np.testing.assert_array_equal(torch.isnan(t).numpy(), nan)
+    np.testing.assert_array_equal(np.isnan(j.astype(np.float32)), nan)
+    np.testing.assert_array_equal(t.view(torch.int16).numpy()[~nan], j.view(np.int16)[~nan])
+    if case == "overflow_to_inf":
+        assert np.isinf(t.float().numpy()).sum() == 5
+
+
 def test_cast_of_same_dtype_is_identity():
     x = torch.ones(3, 4)
     assert cast.cast_table(x, torch.float32) is x
@@ -105,7 +145,7 @@ def test_non_cpu_tensor_never_takes_the_plain_version(wrapper):
 @pytest.mark.parametrize("module,names,branch", [
     (adam_sweep, ("fused_adam_dense_sweep", "_launch_sweep", "_sweep_kernel"),
      "if table.is_cuda:"),
-    (cast, ("cast_table", "_launch_cast", "_cast_kernel"), "if x.is_cuda:"),
+    (cast, ("cast_table", "_launch_cast", "_cast_kernel", "bind"), "if x.is_cuda:"),
 ])
 def test_dispatch_has_no_fallback(module, names, branch):
     """The dispatch branches on the tensor's device only: no try/except
@@ -153,12 +193,34 @@ def test_sweep_kernel_matches_plain_on_card(cuda, shape):
         assert torch.equal(t, r)
 
 
+def _card_cast_operand(case, cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    if case == "edges":
+        bits = torch.randint(-2**31, 2**31, (4097,), device=cuda, generator=g,
+                             dtype=torch.int64).to(torch.int32)
+        edges = torch.from_numpy(np.concatenate(list(CAST_EDGES.values())).view(np.int32))
+        return torch.cat([edges.to(cuda), bits]).view(torch.float32)
+    if case == "misaligned":
+        return (torch.randn(1001, device=cuda, generator=g) * 1e3)[1:]
+    if case == "misaligned_table":
+        return torch.randn((65536, 300), device=cuda, generator=g).view(-1)[1:]
+    return torch.randn(case, device=cuda, generator=g) * 1e3
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(65536, 300), (5, 7)])
-def test_cast_kernel_bitwise_on_card(cuda, shape):
-    x = torch.randn(shape, device=cuda) * 1e3
+@pytest.mark.parametrize("case", [(65536, 300), (5, 7), "edges", "misaligned",
+                                  "misaligned_table", 1, 5, 7, 9])
+def test_cast_kernel_bitwise_on_card(cuda, case):
+    """Bitwise ``.to(torch.bfloat16)`` wherever the result is not NaN, and
+    NaN where it is, at the main path's shape, on edge values and random bit
+    patterns, on slices that start one element in (misaligned base, odd n),
+    and for n < 8."""
+    x = _card_cast_operand(case, cuda)
     before = cast.cast_table.launches
     y = cast.cast_table(x, torch.bfloat16)
     torch.cuda.synchronize()
     assert cast.cast_table.launches == before + 1
-    assert torch.equal(y.view(torch.int16), x.to(torch.bfloat16).view(torch.int16))
+    ref = x.to(torch.bfloat16)
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(y), nan)
+    assert torch.equal(y.view(torch.int16)[~nan], ref.view(torch.int16)[~nan])
