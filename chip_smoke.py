@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
-    python3 chip_smoke.py        # about a minute
+    python3 chip_smoke.py        # about two minutes
 
 It builds both kernels from the sources in the checkout: the sweep with
 Triton (its cache goes under build/triton) and the cast with nvcc (into
@@ -25,7 +25,16 @@ build/cuda), and runs the port's main path:
      every cost finite, the sweep launched twice and the cast once per step;
   C  train_model on the three-topic corpus of
      tests/test_train_integration.py (cost falls below 0.6x, MAP > 0.8),
-     then top-1000 rankings of 100 random queries over the phase-B tables.
+     then top-1000 rankings of 100 random queries over the phase-B tables;
+  D  the same configuration through on-device sampling, on phase B's
+     corpus: D1 one whole epoch (117 steps, calls of K = 13) of the
+     epoch-exact multistep (under torch.cuda.set_sync_debug_mode("error"),
+     so no op of it may wait for the device), after checking the device
+     permutation against the epoch's pointers and one batch's windows
+     against the corpus; D2 train_model(on_device_sampling=True) for 2
+     epochs into HDF5 checkpoints under build/, the last read back
+     bitwise, then a resumed third epoch.  Every cost finite, the sweep
+     launched twice and the cast once per step.
 
 Without a CUDA device it exits with an error before printing any result.
 The last line of its output is one JSON object with "ok" and the device;
@@ -34,9 +43,13 @@ the line before it lists each kernel with its launches, error and times.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
+import shutil
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -51,9 +64,11 @@ from cunvsm_torch.config import (
     TrainConfig,
     UpdateMethod,
 )
+from cunvsm_torch.data import device_sampler
 from cunvsm_torch.data.corpus import build_corpus
 from cunvsm_torch.data.instances import TextEntitySource
 from cunvsm_torch.data.synth import zipf_corpus
+from cunvsm_torch.io import checkpoint
 from cunvsm_torch.models.objectives import TextEntityBatch
 from cunvsm_torch.models.params import init_params, params_from_numpy, params_to_numpy
 from cunvsm_torch.ops import adam_sweep, cast, cuda_build
@@ -63,11 +78,14 @@ from cunvsm_torch.query.metrics import evaluate_run
 from cunvsm_torch.train.step import make_train_step, resolve_negative_sampling
 from cunvsm_torch.train.trainer import train_model
 
-# The canonical configuration (bench.py) and the size of phase B.
+# The canonical configuration (bench.py), the size of phase B and the
+# steps per call of phase D (a divisor of the epoch's 117 steps).
 CANONICAL = dict(
     num_words=65536, num_entities=262144, doc_len=32, word_dim=300,
     entity_dim=256, batch=51200, window=10, negatives=10, warmup=3, steps=20,
+    steps_per_call=13,
 )
+BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 SWEEP_HYPER = dict(lam=0.01 / 51200, beta1=0.9, beta2=0.999, eps=1e-6)
 
 
@@ -318,6 +336,12 @@ def phase_b0(device):
         raise AssertionError("the card's small steps disagree with the CPU reference")
 
 
+def canonical_corpus(sizes):
+    """The Zipf corpus of phases B and D."""
+    return zipf_corpus(sizes["num_entities"], sizes["doc_len"], vocab_size=sizes["num_words"],
+                       window_size=sizes["window"], seed=4242)
+
+
 def canonical_training(device, sizes):
     """Set up the canonical configuration at full width on ``device``.
 
@@ -327,8 +351,7 @@ def canonical_training(device, sizes):
     desc, cfg = canonical_desc_cfg(sizes)
     n_ent, batch = sizes["num_entities"], sizes["batch"]
     t0 = time.perf_counter()
-    corpus = zipf_corpus(n_ent, sizes["doc_len"], vocab_size=sizes["num_words"],
-                         window_size=sizes["window"], seed=4242)
+    corpus = canonical_corpus(sizes)
     source = TextEntitySource(corpus, batch_size=batch, seed=cfg.seed)
     batches = source.epoch_batches()
     log(f"B corpus {n_ent} docs x {sizes['doc_len']} tokens, "
@@ -454,6 +477,173 @@ def phase_c(device, params_b, corpus_b):
     return dict(map=map_, rank_ms=rank_ms, device_rank_ms=kernel_ms)
 
 
+def reset_launches():
+    adam_sweep.fused_adam_dense_sweep.launches = 0
+    cast.cast_table.launches = 0
+
+
+def read_launches(steps, phase):
+    """The launch counts since ``reset_launches``; raises unless the path
+    launched the sweep twice and the cast once per step."""
+    launches = {
+        "sweep": adam_sweep.fused_adam_dense_sweep.launches,
+        "cast": cast.cast_table.launches,
+    }
+    if launches != {"sweep": 2 * steps, "cast": steps}:
+        raise AssertionError(f"{phase}: kernel launches {launches} for {steps} steps")
+    log(f"{phase} launches: {launches} over {steps} steps")
+    return launches
+
+
+def on_device_training(device, sizes, corpus):
+    """The canonical configuration through on-device sampling on
+    ``corpus``.  Returns ``run(calls, start_call=0) -> costs``, which trains
+    ``calls`` calls of K steps from one shuffled epoch, and the device
+    corpus, the shuffled pointers and steps_epoch."""
+    desc, cfg = canonical_desc_cfg(sizes)
+    batch, k = sizes["batch"], sizes["steps_per_call"]
+    dc = device_sampler.prepare_device_corpus(corpus, device)
+    permute, n_ptrs = device_sampler.make_epoch_permuter(dc)
+    steps_epoch = max(min(TextEntitySource(corpus, batch).batches_per_epoch(), n_ptrs // batch), 1)
+    if steps_epoch % k:
+        raise AssertionError(f"K={k} does not divide the epoch's {steps_epoch} steps")
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = init_params(gen, sizes["num_words"], sizes["num_entities"], desc, device=device)
+    state = Optimizer(cfg).init(params)
+    multistep = device_sampler.make_device_sampled_multistep(
+        desc, cfg, dc, k, gen, num_entities=sizes["num_entities"])
+    doc_perm = permute(gen)
+
+    def run(calls, start_call=0):
+        return [multistep(params, state, doc_perm, (start_call + c) * k * batch)
+                for c in range(calls)]
+
+    return run, dc, doc_perm, steps_epoch
+
+
+def check_sampling(dc, doc_perm, corpus, batch, gen):
+    """The shuffled pointers are a permutation of the epoch's pointers
+    (sorted and compared on the device), and one batch's windows are
+    ``tokens[offset + pos : offset + pos + W]`` with 0 <= pos < len - W + 1,
+    recomputed on the host from the corpus."""
+    ptrs = device_sampler.epoch_doc_pointers(dc)
+    if not torch.equal(torch.sort(doc_perm).values, torch.sort(ptrs).values):
+        raise AssertionError("the device permutation is not a permutation of the epoch's pointers")
+    u = torch.rand(batch, generator=gen, device=doc_perm.device)
+    b = device_sampler.sample_batch(dc, batch, docs=doc_perm[:batch], uniforms=u)
+    docs, uu = doc_perm[:batch].cpu().numpy(), u.cpu().numpy()
+    w = dc.window_size
+    n = np.diff(corpus.doc_offsets)[docs] - w + 1
+    pos = np.minimum(np.floor(uu * n.astype(np.float32)).astype(np.int64), n - 1)
+    if not (np.all(pos >= 0) and np.all(pos < n)):
+        raise AssertionError("a sampled window starts outside its document")
+    want = corpus.tokens[corpus.doc_offsets[docs][:, None] + pos[:, None] + np.arange(w)]
+    if not np.array_equal(b.features.cpu().numpy(), want):
+        raise AssertionError("a sampled window differs from the corpus's tokens")
+    if not np.array_equal(b.labels.cpu().numpy(), docs):
+        raise AssertionError("sampled labels differ from the pointers")
+    log(f"D1 sampling: permutation of {ptrs.shape[0]} pointers checked; "
+        f"{batch} windows equal to the corpus's tokens, pos in [{pos.min()}, {pos.max()}]")
+
+
+def phase_d1(device, sizes, corpus):
+    """One whole epoch of the epoch-exact multistep at full width."""
+    t0 = time.perf_counter()
+    run, dc, doc_perm, steps_epoch = on_device_training(device, sizes, corpus)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check_sampling(dc, doc_perm, corpus, sizes["batch"],
+                   torch.Generator(device=device).manual_seed(1))
+    calls = steps_epoch // sizes["steps_per_call"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    # Any op of the epoch that waits for the device raises: the K steps of
+    # a call must be enqueued back to back.
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    try:
+        costs = torch.cat(run(calls))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_launches(steps_epoch, "D1")
+    costs = costs.cpu().numpy()
+    if not (costs.shape == (steps_epoch,) and np.all(np.isfinite(costs))):
+        raise AssertionError(f"non-finite or missing cost in phase D1: {costs}")
+    stats = dict(
+        steps=steps_epoch, steps_per_call=sizes["steps_per_call"],
+        setup_s=setup_s, ms_per_step=1e3 * elapsed / steps_epoch,
+        pairs_per_s=sizes["batch"] * steps_epoch / elapsed,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        corpus_device_mib=dc.nbytes() / 2**20,
+        pointers_device_mib=doc_perm.numel() * doc_perm.element_size() / 2**20,
+        first_cost=float(costs[0]), last_cost=float(costs[-1]),
+    )
+    log("D1 " + json.dumps(stats))
+    return stats, launches
+
+
+def phase_d2(device, sizes, corpus):
+    """train_model with on-device sampling: 2 epochs into checkpoints, the
+    last read back bitwise, then a resumed third epoch."""
+    desc, cfg = canonical_desc_cfg(sizes)
+    k = sizes["steps_per_call"]
+    os.makedirs(BUILD, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase_d_", dir=BUILD)
+    prefix = os.path.join(tmp, "m")
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        first = train_model(desc, dataclasses.replace(cfg, num_epochs=2), corpus, device,
+                            output_prefix=prefix, on_device_sampling=True, steps_per_call=k)
+        first_s = time.perf_counter() - t0
+        steps_epoch = first.steps // 2
+        for name in ("_1.hdf5", "_2.hdf5", "_meta", "_resume.npz"):
+            if not os.path.exists(prefix + name):
+                raise AssertionError(f"phase D2 wrote no {prefix + name}")
+        loaded = checkpoint.load_model_hdf5(prefix, 2)
+        for name, a, b in zip(loaded._fields, first.params, loaded):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"{name} read back from _2.hdf5 differs from the trained table")
+        t0 = time.perf_counter()
+        resumed = train_model(desc, dataclasses.replace(cfg, num_epochs=3), corpus, device,
+                              output_prefix=prefix, resume=True, on_device_sampling=True,
+                              steps_per_call=k)
+        resumed_s = time.perf_counter() - t0
+        launches = read_launches(first.steps + resumed.steps, "D2")
+        with np.load(prefix + "_resume.npz") as data:
+            total = int(data["extra_total_batches"])
+        if not (len(resumed.epoch_costs) == 1 and resumed.steps == steps_epoch
+                and int(resumed.opt_state.word.t) == 3 * steps_epoch + 1
+                and total == 3 * steps_epoch):
+            raise AssertionError(
+                f"the resumed run did not start at epoch 3, step {2 * steps_epoch}: "
+                f"{resumed.epoch_costs}, {resumed.steps} steps, t={int(resumed.opt_state.word.t)}")
+        costs = first.epoch_costs + resumed.epoch_costs
+        if not all(np.isfinite(costs)):
+            raise AssertionError(f"non-finite epoch cost in phase D2: {costs}")
+        t0 = time.perf_counter()
+        checkpoint.save_model_hdf5(resumed.params, prefix, "timed")
+        model_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        checkpoint.save_training_state(prefix + "_timed", resumed.params, resumed.opt_state, 3)
+        resume_s = time.perf_counter() - t0
+        stats = dict(
+            steps_epoch=steps_epoch, epoch_costs=costs,
+            two_epochs_s=first_s, resumed_epoch_s=resumed_s,
+            batches_per_sec=first.batches_per_sec,
+            model_hdf5_mib=os.path.getsize(checkpoint.checkpoint_path(prefix, 2)) / 2**20,
+            resume_npz_mib=os.path.getsize(prefix + "_resume.npz") / 2**20,
+            model_write_s=model_s, resume_write_s=resume_s,
+        )
+    finally:
+        shutil.rmtree(tmp)
+    log("D2 " + json.dumps(stats))
+    return stats, launches
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -479,18 +669,15 @@ def main():
     log(f"A done in {time.perf_counter() - t0:.1f}s (the kernels' builds included)")
     phase_b0(device)
 
-    adam_sweep.fused_adam_dense_sweep.launches = 0
-    cast.cast_table.launches = 0
+    reset_launches()
     stats, params_b, corpus_b = phase_b(device, CANONICAL)
-    launches = {
-        "sweep": adam_sweep.fused_adam_dense_sweep.launches,
-        "cast": cast.cast_table.launches,
-    }
     log("B " + json.dumps(stats))
-    if launches != {"sweep": 2 * stats["steps"], "cast": stats["steps"]}:
-        raise AssertionError(f"kernel launches {launches} for {stats['steps']} steps")
-    log(f"B launches: {launches} over {stats['steps']} steps")
+    by_path = {"B": read_launches(stats["steps"], "B")}
     phase_c(device, params_b, corpus_b)
+    del params_b
+    by_path["D1"] = phase_d1(device, CANONICAL, corpus_b)[1]
+    by_path["D2"] = phase_d2(device, CANONICAL, corpus_b)[1]
+    launches = {key: sum(p[key] for p in by_path.values()) for key in ("sweep", "cast")}
 
     meta = {
         "sweep": ("fused_adam_dense_sweep", "triton", "cunvsm_torch/ops/adam_sweep.py",
@@ -500,7 +687,8 @@ def main():
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": route, "source": src, "replaces": rep,
-         "launches": launches[key], **kernels[key]}
+         "launches": launches[key], **kernels[key],
+         "launches_by_path": {path: p[key] for path, p in by_path.items()}}
         for key, (name, route, src, rep) in meta.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

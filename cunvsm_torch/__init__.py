@@ -1,9 +1,11 @@
 """cunvsm-torch: the PyTorch port of cunvsm-tpu for one NVIDIA H100.
 
-The canonical NVSM training step (TEXT_ENTITY objective, full_adam) and the
-ranking over trained tables, with Triton kernels in place of the JAX
-package's Pallas kernels.  This package imports torch and numpy, never jax
-or ``cunvsm_tpu``; its host modules are copies of the JAX package's.
+The canonical NVSM training (TEXT_ENTITY objective, full_adam), host-fed
+or sampled on the device, with HDF5 checkpoints and resume, and the ranking
+over trained tables, with hand-written Hopper kernels (Triton, CUDA C++) in
+place of the JAX package's Pallas kernels.  This package imports torch and
+numpy, never jax, ``cunvsm_tpu``, h5py or protobuf; its host modules are
+copies of the JAX package's.
 """
 
 from cunvsm_torch.config import (

@@ -166,6 +166,14 @@ class TextEntitySource:
             else self._sequential_epoch()
         )
 
+    def skip_epochs(self, n: int) -> None:
+        """Advance the sampling RNG past n epochs (resume support): a
+        resumed run's epoch N+1 draws the instances an uninterrupted run
+        would have drawn."""
+        for _ in range(n):
+            if self.shuffle:
+                self._next_epoch()
+
     def instances_per_epoch(self) -> int:
         if self.shuffle:
             return len(self._eligible) * self._samples_per_doc

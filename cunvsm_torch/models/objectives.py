@@ -171,6 +171,14 @@ def apply_transform(
     raise ValueError(f"unknown nonlinearity {desc.nonlinearity}")
 
 
+def _first_and_rest(first: float, rest: float, n: int, like: torch.Tensor) -> torch.Tensor:
+    """[first, rest, ..., rest] of length n on ``like``'s device, built by
+    device fills: writing a Python number into a CUDA tensor element waits
+    for the device."""
+    opts = dict(dtype=like.dtype, device=like.device)
+    return torch.cat([torch.full((1,), first, **opts), torch.full((n - 1,), rest, **opts)])
+
+
 def nce_instance_weights(
     weights: torch.Tensor, num_negative: int, desc: ModelDesc
 ) -> torch.Tensor:
@@ -181,9 +189,7 @@ def nce_instance_weights(
     broadcast = weights[:, None].repeat(1, k + 1)
     if not desc.bias_negative_samples and k > 1:
         broadcast = broadcast * ((k + 1.0) / (2.0 * k))
-        positive_scale = torch.ones(k + 1, dtype=broadcast.dtype, device=weights.device)
-        positive_scale[0] = float(k)
-        broadcast = broadcast * positive_scale[None, :]
+        broadcast = broadcast * _first_and_rest(float(k), 1.0, k + 1, broadcast)[None, :]
     return broadcast
 
 
@@ -201,8 +207,7 @@ def _nce_tail(dots_raw, nce_w, desc: ModelDesc, batch_size_normalizer):
     """(cost, similarity_probs, d cost / d dots_raw) of the NCE loss over the
     pre-sign dot products [B, k+1], positive column first; the negative
     columns are negated (objective.cu:176-189)."""
-    signs = -torch.ones(dots_raw.shape[1], dtype=dots_raw.dtype, device=dots_raw.device)
-    signs[0] = 1.0
+    signs = _first_and_rest(1.0, -1.0, dots_raw.shape[1], dots_raw)
     eps_f = desc.sigmoid_eps_forward if desc.clip_sigmoid else 0.0
     eps_b = desc.sigmoid_eps_backward if desc.clip_sigmoid else 0.0
 

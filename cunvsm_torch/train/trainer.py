@@ -1,26 +1,72 @@
-"""Host-fed epoch loop for the TEXT_ENTITY objective.
+"""Epoch loop for the TEXT_ENTITY objective, host-fed or sampled on the
+device, with HDF5 checkpoints and resume.
 
-A lean port of the host-fed path of ``cunvsm_tpu/train/trainer.py``: batches
-come from ``data.instances.TextEntitySource`` on the host, each step runs on
-``device``, and the per-step costs stay on the device until one read per
-epoch.  HDF5 checkpoints, resume, on-device sampling and multi-device
-training are not part of this package yet (ROADMAP queue 1).
+Port of the single-device paths of ``cunvsm_tpu/train/trainer.py``:
+
+* **host-fed**: batches come from ``data.instances.TextEntitySource`` on
+  the host, assembled and copied to ``device`` on a prefetch thread
+  (``data.sources.Prefetcher``);
+* **on-device sampling** (``on_device_sampling=True``): the corpus lives on
+  the device and every call of ``steps_per_call`` steps samples its own
+  batches from the epoch's shuffled pointers (``data.device_sampler``).
+  An epoch is ``steps_epoch = max(min(batches, pointers // B), 1)`` steps:
+  ``steps_epoch // K`` calls of K steps, then one call of the remainder,
+  so every full batch trains once per epoch.
+
+The per-step costs stay on the device until one read per epoch.  With an
+``output_prefix`` the loop writes ``<prefix>_meta`` and the vocabulary and
+docno sidecars once, and at every ``checkpoint_every``-th epoch (and the
+last) ``<prefix>_<epoch>.hdf5`` and ``<prefix>_resume.npz``, all through an
+``AsyncCheckpointWriter``.
+
+Random streams.  The JAX package derives the epoch's permutation key from
+the epoch and each call's step key from the count of steps trained
+(``total_batches``).  This package does the same with one explicit
+``torch.Generator`` on ``device``, reseeded from
+``derived_seed(cfg.seed, stream, counter)``: from (seed,
+``PERMUTATION_STREAM``, epoch) before the epoch's shuffle, and from (seed,
+``STEP_STREAM``, total_batches) before each call, whose steps then draw
+their window placements and negatives in order.  Parameters are
+Glorot-initialized from the generator seeded with ``cfg.seed``.  A resumed
+run therefore draws what an uninterrupted run would have drawn; the
+host-fed path replays its numpy batch stream with
+``TextEntitySource.skip_epochs``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+import logging
+import os
+import time
+from typing import Callable, List, Optional
 
+import numpy as np
 import torch
 
 from cunvsm_torch.config import ModelDesc, TrainConfig
+from cunvsm_torch.data import device_sampler
 from cunvsm_torch.data.corpus import Corpus
 from cunvsm_torch.data.instances import FeatureWeighting, TextEntitySource, Weighting
+from cunvsm_torch.data.sources import Prefetcher
+from cunvsm_torch.io import checkpoint as ckpt
 from cunvsm_torch.models.objectives import TextEntityBatch
 from cunvsm_torch.models.params import ModelParams, init_params
 from cunvsm_torch.optim.updates import Optimizer, OptState
 from cunvsm_torch.train.step import make_train_step
+
+logger = logging.getLogger(__name__)
+
+PERMUTATION_STREAM = 0x5A5A5A  # the JAX package's fold_in tag of the shuffle
+STEP_STREAM = 1
+
+
+def derived_seed(seed: int, stream: int, counter: int) -> int:
+    """The 63-bit seed of (seed, stream, counter), from numpy's
+    ``SeedSequence``: a host-side function of three integers, so every
+    device and every resumed run derives the same one."""
+    state = np.random.SeedSequence([seed, stream, counter]).generate_state(1, np.uint64)
+    return int(state[0] >> np.uint64(1))
 
 
 @dataclasses.dataclass
@@ -28,7 +74,58 @@ class TrainResult:
     params: ModelParams
     opt_state: OptState
     epoch_costs: List[float]
-    steps: int
+    steps: int  # steps trained by this call
+    batches_per_sec: float  # steps / wall seconds of this call's epochs
+
+
+def _not_ported(option: str, item: str):
+    return NotImplementedError(f"{option} is not ported yet (ROADMAP.md queue 1, {item})")
+
+
+def _check_options(cfg, on_device_sampling, steps_per_call, checkpoint_every,
+                   similarity_source, mesh, shard_corpus, stratify_data_groups,
+                   check_gradients, profile_dir, compute_initial_cost):
+    """The JAX trainer's guards as ValueErrors with its conditions, then
+    NotImplementedError for the options this package does not have."""
+    if checkpoint_every < 1:
+        raise ValueError("checkpoint_every must be >= 1")
+    if cfg.reference_rng and on_device_sampling:
+        raise ValueError(
+            "reference_rng replays the host minstd_rand0 pipeline; "
+            "on_device_sampling draws on device — pick one"
+        )
+    composite = cfg.entity_entity_weight != 0.0 or cfg.term_term_weight != 0.0
+    if composite and similarity_source is None:
+        raise ValueError("a composite objective requires a similarity source")
+    if stratify_data_groups and not on_device_sampling:
+        raise ValueError("stratify_data_groups requires on_device_sampling")
+    if on_device_sampling:
+        if composite:
+            raise ValueError("on-device sampling supports only the text-entity objective")
+        if cfg.no_shuffle:
+            raise ValueError("on-device sampling is stochastic-only")
+        if check_gradients:
+            raise ValueError("check_gradients is incompatible with on-device sampling")
+        if shard_corpus and mesh is None:
+            raise ValueError("shard_corpus requires a mesh")
+        if stratify_data_groups and shard_corpus:
+            raise ValueError(
+                "stratify_data_groups simulates the shard_corpus shuffle "
+                "on an unsharded corpus; pick one"
+            )
+    elif steps_per_call > 1 and check_gradients:
+        raise ValueError("check_gradients requires steps_per_call=1")
+    for option, value, item in (
+        ("similarity_source", similarity_source is not None, "item 4, composite objectives"),
+        ("mesh", mesh is not None, "item 8, multi-GPU"),
+        ("shard_corpus", shard_corpus, "item 8, multi-GPU"),
+        ("stratify_data_groups", stratify_data_groups, "item 8, multi-GPU"),
+        ("check_gradients", check_gradients, "item 7, train/gradcheck.py"),
+        ("profile_dir", profile_dir, "item 7, trainer options"),
+        ("compute_initial_cost", compute_initial_cost, "item 7, trainer options"),
+    ):
+        if value:
+            raise _not_ported(option, item)
 
 
 def train_model(
@@ -36,15 +133,41 @@ def train_model(
     cfg: TrainConfig,
     corpus: Corpus,
     device,
+    output_prefix: Optional[str] = None,
+    similarity_source=None,
     feature_weighting: FeatureWeighting = FeatureWeighting.UNIFORM,
     weighting: Weighting = Weighting.AUTOMATIC,
+    compute_initial_cost: bool = False,
+    dump_initial_model: bool = False,
+    dump_every: int = 0,
+    resume: bool = False,
+    prefetch_depth: int = 10,
     dtype=torch.float32,
+    epoch_callback: Optional[Callable] = None,
+    check_gradients: bool = False,
+    profile_dir: Optional[str] = None,
+    log_every: int = 0,
+    steps_per_call: int = 1,
+    mesh=None,
+    on_device_sampling: bool = False,
+    shard_corpus: bool = False,
+    stratify_data_groups: int = 0,
+    checkpoint_every: int = 1,
 ) -> TrainResult:
-    """Train a model over ``corpus`` for ``cfg.num_epochs`` epochs.
+    """Train a model over ``corpus`` for ``cfg.num_epochs`` epochs on
+    ``device``; the options are the JAX trainer's (see the module doc).
 
-    Parameters are Glorot-initialized from a generator on ``device`` seeded
-    with ``cfg.seed``, which then draws the negatives; the host batch order
-    comes from ``cfg.seed`` as in the JAX package."""
+    ``steps_per_call`` is the K of the on-device path; the host-fed path
+    reseeds its generator per call of K steps as the JAX package keys its
+    groups, and enqueues each step as its batch arrives.  ``dump_every``
+    and ``log_every`` count steps of the host-fed path.  ``resume`` restarts
+    after the last epoch in ``<output_prefix>_resume.npz`` (and trains from
+    scratch without one).  ``epoch_callback(epoch, params, cost)`` runs
+    after each epoch, once that epoch's checkpoint is on disk.
+    """
+    _check_options(cfg, on_device_sampling, steps_per_call, checkpoint_every,
+                   similarity_source, mesh, shard_corpus, stratify_data_groups,
+                   check_gradients, profile_dir, compute_initial_cost)
     # UNIFORM feature weighting means every batch's feature_weights are all
     # ones: promise that statically so the step skips the multiply.
     if feature_weighting == FeatureWeighting.UNIFORM:
@@ -64,16 +187,120 @@ def train_model(
         generator, corpus.vocab.size, corpus.num_docs, desc, dtype=dtype, device=device
     )
     opt_state = Optimizer(cfg).init(params)
-    step = make_train_step(desc, cfg, device, generator, num_entities=corpus.num_docs)
 
+    def reseed(stream: int, counter: int) -> None:
+        generator.manual_seed(derived_seed(cfg.seed, stream, counter))
+
+    start_epoch, total_batches = 1, 0
+    if resume and output_prefix and os.path.exists(f"{output_prefix}_resume.npz"):
+        _, _, last_epoch, extra = ckpt.load_training_state(output_prefix, params, opt_state)
+        start_epoch = last_epoch + 1
+        total_batches = int(extra.get("total_batches", 0))
+        if not on_device_sampling:
+            source.skip_epochs(last_epoch)
+        logger.info("Resumed from epoch %d at step %d.", last_epoch, total_batches)
+
+    if output_prefix and start_epoch == 1:
+        # One-time metadata and sidecars (main.cu:527-537).
+        ckpt.save_meta(
+            ckpt.build_metadata(
+                corpus.vocab.index_term_ids, corpus.vocab.term_freq, corpus.num_docs,
+                corpus.vocab.total_terms, corpus.vocab.include_oov,
+                index_object_ids=getattr(corpus, "index_doc_ids", None),
+            ),
+            output_prefix,
+        )
+        ckpt.save_corpus_sidecars(corpus, output_prefix)
+
+    k = max(steps_per_call, 1)
+    if on_device_sampling:
+        resolved = Weighting.UNIFORM if weighting == Weighting.AUTOMATIC else weighting
+        dc = device_sampler.prepare_device_corpus(
+            corpus, device, weighting=resolved, feature_weighting=feature_weighting
+        )
+        permute, ptrs_per_epoch = device_sampler.make_epoch_permuter(dc)
+        steps_epoch = max(min(source.batches_per_epoch(), ptrs_per_epoch // cfg.batch_size), 1)
+        k = min(k, steps_epoch)
+        rem_steps = steps_epoch % k
+        if rem_steps:
+            logger.warning(
+                "steps_per_call=%d does not divide the epoch's %d steps; the %d "
+                "remainder steps run as one extra call per epoch.",
+                k, steps_epoch, rem_steps,
+            )
+        calls = [(k, steps_epoch // k)] + ([(rem_steps, 1)] if rem_steps else [])
+        runs = []
+        for n, count in calls:
+            run = device_sampler.make_device_sampled_multistep(
+                desc, cfg, dc, n, generator, num_entities=corpus.num_docs
+            )
+            runs += [(run, n)] * count
+    else:
+        step = make_train_step(desc, cfg, device, generator, num_entities=corpus.num_docs)
+        batches_per_epoch = source.batches_per_epoch()
+        grouped = batches_per_epoch // k * k  # later steps run as calls of one
+
+    def host_batches():
+        batches = (TextEntityBatch.from_numpy(b, device, dtype) for b in source.epoch_batches())
+        return Prefetcher(batches, depth=prefetch_depth) if prefetch_depth > 0 else batches
+
+    writer = ckpt.AsyncCheckpointWriter() if output_prefix else None
     epoch_costs: List[float] = []
     steps = 0
-    for _ in range(cfg.num_epochs):
-        costs = [
-            step(params, opt_state, TextEntityBatch.from_numpy(b, device, dtype))
-            for b in source.epoch_batches()
-        ]
-        steps += len(costs)
-        # One host read per epoch.
-        epoch_costs.append(float(torch.stack(costs).mean()) if costs else 0.0)
-    return TrainResult(params, opt_state, epoch_costs, steps)
+    train_start = time.perf_counter()
+    try:
+        if dump_initial_model and output_prefix:
+            writer.save_model(params, output_prefix, 0)
+        for epoch in range(start_epoch, cfg.num_epochs + 1):
+            epoch_start = time.perf_counter()
+            costs = []
+            if on_device_sampling:
+                reseed(PERMUTATION_STREAM, epoch)
+                doc_perm = permute(generator)
+                cursor = 0
+                for run, n in runs:
+                    reseed(STEP_STREAM, total_batches)
+                    costs.append(run(params, opt_state, doc_perm, cursor))
+                    cursor += n * cfg.batch_size
+                    total_batches += n
+            else:
+                for i, batch in enumerate(host_batches()):
+                    if i % k == 0 or i >= grouped:
+                        reseed(STEP_STREAM, total_batches)
+                    cost = step(params, opt_state, batch)
+                    costs.append(cost.reshape(1))
+                    total_batches += 1
+                    if log_every and total_batches % log_every == 0:
+                        logger.info("Batch %d (epoch %d): cost=%.6f progress=%.1f%%",
+                                    total_batches, epoch, float(cost),
+                                    100.0 * (i + 1) / max(batches_per_epoch, 1))
+                    if dump_every > 0 and output_prefix and total_batches % dump_every == 0:
+                        writer.save_model(params, output_prefix, f"{epoch}_{total_batches}")
+            epoch_steps = sum(c.shape[0] for c in costs)
+            steps += epoch_steps
+            # One host read per epoch.
+            epoch_cost = float(torch.cat(costs).mean()) if costs else 0.0
+            epoch_costs.append(epoch_cost)
+            logger.info("Epoch %d%s: cost=%.6f (%d steps, %.1fs)", epoch,
+                        " (on-device sampling)" if on_device_sampling else "",
+                        epoch_cost, epoch_steps, time.perf_counter() - epoch_start)
+            dumped = output_prefix and (epoch % checkpoint_every == 0 or epoch == cfg.num_epochs)
+            if dumped:
+                writer.save_model(params, output_prefix, epoch, overwrite=resume)
+                writer.save_training_state(
+                    output_prefix, params, opt_state, epoch,
+                    extra={"total_batches": np.asarray(total_batches)},
+                )
+            if epoch_callback:
+                if dumped:
+                    # Callbacks read this epoch's files: wait for the writer.
+                    writer.wait()
+                epoch_callback(epoch, params, epoch_cost)
+    finally:
+        if writer is not None:
+            writer.close()
+    total_time = time.perf_counter() - train_start
+    return TrainResult(
+        params, opt_state, epoch_costs, steps,
+        batches_per_sec=steps / total_time if total_time > 0 else 0.0,
+    )

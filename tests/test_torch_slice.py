@@ -5,7 +5,8 @@ hygiene.
   (its own copy of the generator, the same configuration) lowers the cost
   and ranks same-topic documents first (MAP > 0.8);
 * ``QueryEngine.rank`` returns the JAX engine's ranking on the same tables;
-* ``cunvsm_torch`` imports neither jax nor ``cunvsm_tpu``.
+* ``cunvsm_torch`` imports neither jax nor ``cunvsm_tpu``, h5py nor
+  protobuf.
 """
 
 import os
@@ -141,20 +142,26 @@ def test_batch_from_numpy():
     np.testing.assert_array_equal(b.features.numpy(), nb.features)
 
 
-FORBIDDEN = ("jax", "jaxlib", "cunvsm_tpu", "triton")
+FORBIDDEN = ("jax", "jaxlib", "cunvsm_tpu", "triton", "h5py", "google.protobuf")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
 
 def test_port_never_imports_jax():
     """Import every module of the port in a fresh interpreter and check
-    that it loaded neither jax nor the JAX package (nor triton, which only
-    a kernel launch imports)."""
+    that it loaded neither jax nor the JAX package, nor h5py or protobuf
+    (the card's machine has neither), nor triton, which only a kernel
+    launch imports."""
     code = (
         "import importlib, pkgutil, sys\n"
         "before = set(sys.modules)\n"
         "import cunvsm_torch\n"
         "for m in pkgutil.walk_packages(cunvsm_torch.__path__, 'cunvsm_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        f"bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r})\n"
+        f"bad = sorted(m for m in set(sys.modules) - before\n"
+        f"             if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules if m.startswith('cunvsm_torch')]))\n"
     )
@@ -184,6 +191,5 @@ def test_port_sources_name_no_jax_import():
             else:
                 continue
             for name in names:
-                top = name.split(".")[0]
-                allowed = top == "triton" and path.endswith("triton_build.py")
-                assert allowed or top not in FORBIDDEN, (path, name)
+                allowed = name.split(".")[0] == "triton" and path.endswith("triton_build.py")
+                assert allowed or not _forbidden(name), (path, name)

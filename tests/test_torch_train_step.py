@@ -21,34 +21,11 @@ from cunvsm_torch.config import AdamConfig, AdamMode, UpdateMethod
 from cunvsm_torch.optim import updates as tupd
 from cunvsm_torch.train import step as tstep
 from tests.torch_parity import (
-    B, DESCS, K, N, both_batches, both_params, numpy_batch, numpy_params, to_np,
-    train_config, twin,
+    B, DESCS, K, N, both_batches, both_params, jax_train_step, numpy_batch, numpy_params,
+    to_np, train_config, twin,
 )
 
 torch.set_num_threads(1)
-
-
-def _jax_step(jparams, jstate, jbatch, ids, pooled, desc, cfg, stride):
-    jdesc, jcfg = twin(desc), twin(cfg)
-    kw = dict(
-        stream_dtype=jcfg.resolved_stream_dtype(),
-        uniform_feature_weights=jcfg.uniform_feature_weights,
-        window_sum_dtype=jcfg.resolved_window_sum_dtype(),
-    )
-    if pooled:
-        cost, _, grads = jobj.text_entity_cost_and_grads_pooled(
-            jparams, jbatch, jnp.asarray(ids), K, jdesc, pool_stride=stride, **kw
-        )
-    else:
-        entity_ids = jnp.concatenate([jbatch.labels[:, None], jnp.asarray(ids)], axis=1)
-        cost, _, grads = jobj.text_entity_cost_and_grads(
-            jparams, jbatch, entity_ids, jdesc, factored_entity_grads=True, **kw
-        )
-    lam = jstep.scaled_regularization_lambda(jcfg, jstep.ObjectiveKind.TEXT_ENTITY)
-    jparams, jstate = jupd.Optimizer(jcfg).apply(
-        jparams, jstate, grads, jcfg.resolved_learning_rate(), lam
-    )
-    return jparams, jstate, cost
 
 
 def _draw_ids(rng, pooled, pool):
@@ -76,7 +53,7 @@ def test_three_steps_match_jax(desc_name, pooled):
     for i in range(3):
         jb, tb = both_batches(numpy_batch(20 + i, weighted=desc_name == "lse"))
         ids = _draw_ids(rng, pooled, pool)
-        jp, jstate, jcost = _jax_step(jp, jstate, jb, ids, pooled, desc, cfg, stride)
+        jp, jstate, jcost = jax_train_step(jp, jstate, jb, ids, pooled, desc, cfg, stride)
         tcost = step(tp, tstate, tb, negative_ids=torch.from_numpy(ids).long())
         np.testing.assert_allclose(float(tcost), float(jcost), rtol=1e-9)
     for j, t in zip(jp, tp):

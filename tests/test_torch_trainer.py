@@ -1,0 +1,236 @@
+"""The port's trainer: resume, checkpoints, on-device epochs and guards.
+
+* 2 + 2 resumed epochs equal an uninterrupted 4, bit for bit, on the
+  host-fed and on the on-device path (the cases of
+  tests/test_train_integration.py:142-211, with full_adam);
+* an output prefix writes ``_meta`` (the JAX package's bytes for the same
+  corpus), the sidecars, one ``.hdf5`` per dumped epoch (read back equal to
+  the returned tables) and the resume file; the callback sees its epoch's
+  file;
+* on-device epochs train every full batch once: a K that does not divide
+  the epoch adds one remainder call, a K larger than the epoch is clamped;
+* the JAX trainer's guards raise ValueError, and the options this package
+  does not have raise NotImplementedError naming their ROADMAP item.
+"""
+
+import logging
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from cunvsm_torch.config import (
+    AdamConfig,
+    AdamMode,
+    DataConfig,
+    ModelDesc,
+    TrainConfig,
+    UpdateMethod,
+)
+from cunvsm_torch.data.corpus import build_corpus
+from cunvsm_torch.data.instances import FeatureWeighting, TextEntitySource
+from cunvsm_torch.data.sources import Prefetcher
+from cunvsm_torch.io import checkpoint as tckpt
+from cunvsm_torch.train.trainer import derived_seed, train_model
+from tests.test_torch_slice import synthetic_corpus
+
+torch.set_num_threads(1)
+CPU = torch.device("cpu")
+DESC = ModelDesc(word_repr_size=8, entity_repr_size=6)
+
+
+def small_corpus(docs_per_topic=3, doc_len=20):
+    docs, _ = synthetic_corpus(num_docs_per_topic=docs_per_topic, doc_len=doc_len)
+    return build_corpus(
+        docs,
+        DataConfig(max_vocabulary_size=0, min_document_frequency=0, max_document_frequency=0),
+        window_size=4,
+    )
+
+
+def cfg(n, batch=8, **kw):
+    return TrainConfig(
+        num_epochs=n, batch_size=batch, window_size=4, num_random_entities=2,
+        learning_rate=0.01, seed=3, update_method=UpdateMethod.ADAM,
+        adam=AdamConfig(mode=AdamMode.DENSE_UPDATE_DENSE_VARIANCE), **kw,
+    )
+
+
+def assert_same_state(a, b):
+    for x, y in zip(tckpt.state_leaves(a.params, a.opt_state),
+                    tckpt.state_leaves(b.params, b.opt_state)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("path", ["host_fed", "on_device"])
+def test_resume_equals_uninterrupted(tmp_path, path):
+    """2 + 2 epochs with resume give the tables, moments and step counters
+    of an uninterrupted 4-epoch run, bit for bit: the batch stream and the
+    generator's reseeds continue where they left off."""
+    corpus = small_corpus()
+    kw = dict(on_device_sampling=True, steps_per_call=2) if path == "on_device" else {}
+    straight = train_model(DESC, cfg(4), corpus, CPU, **kw)
+    prefix = str(tmp_path / "m")
+    first = train_model(DESC, cfg(2), corpus, CPU, output_prefix=prefix, **kw)
+    resumed = train_model(DESC, cfg(4), corpus, CPU, output_prefix=prefix, resume=True, **kw)
+    assert resumed.steps == first.steps == straight.steps // 2 > 0
+    assert first.epoch_costs + resumed.epoch_costs == straight.epoch_costs
+    assert_same_state(straight, resumed)
+    assert int(resumed.opt_state.entity.t) == straight.steps + 1
+
+
+def test_resume_without_a_resume_file_trains_from_scratch(tmp_path):
+    corpus = small_corpus()
+    a = train_model(DESC, cfg(1), corpus, CPU, output_prefix=str(tmp_path / "m"), resume=True)
+    b = train_model(DESC, cfg(1), corpus, CPU)
+    assert_same_state(a, b)
+
+
+@pytest.mark.parametrize("on_device", [False, True])
+def test_checkpoint_files(tmp_path, on_device):
+    jckpt = pytest.importorskip("cunvsm_tpu.io.checkpoint")
+    corpus = small_corpus()
+    prefix = str(tmp_path / "m")
+    seen = []
+
+    def callback(epoch, params, cost):
+        # The writer has finished this epoch's file before the callback.
+        same = None
+        if os.path.exists(tckpt.checkpoint_path(prefix, epoch)):
+            loaded = tckpt.load_model_hdf5(prefix, epoch)
+            same = all(torch.equal(a, b) for a, b in zip(params, loaded))
+        seen.append((epoch, same, cost))
+
+    result = train_model(DESC, cfg(3), corpus, CPU, output_prefix=prefix,
+                         dump_initial_model=True, checkpoint_every=2,
+                         epoch_callback=callback, on_device_sampling=on_device)
+    files = sorted(os.listdir(tmp_path))
+    assert files == ["m_0.hdf5", "m_2.hdf5", "m_3.hdf5", "m_docnos.txt", "m_meta",
+                     "m_resume.npz", "m_vocab.txt"]
+    assert [s[:2] for s in seen] == [(1, None), (2, True), (3, True)]
+    assert [s[2] for s in seen] == result.epoch_costs
+    loaded = tckpt.load_model_hdf5(prefix, 3)
+    for a, b in zip(result.params, loaded):
+        assert torch.equal(a, b)
+    want = jckpt.build_metadata(
+        corpus.vocab.index_term_ids, corpus.vocab.term_freq, corpus.num_docs,
+        corpus.vocab.total_terms, corpus.vocab.include_oov,
+    ).SerializeToString()
+    with open(f"{prefix}_meta", "rb") as f:
+        assert f.read() == want
+    assert tckpt.load_strings(f"{prefix}_docnos.txt") == corpus.docnos
+    with np.load(f"{prefix}_resume.npz") as data:
+        assert int(data["__epoch__"]) == 3
+        assert int(data["extra_total_batches"]) == result.steps
+        assert len([k for k in data.files if k.startswith("leaf_")]) == 4 + 3 + 3 + 5
+
+
+def test_dump_every_writes_intra_epoch_models(tmp_path):
+    corpus = small_corpus()
+    per_epoch = TextEntitySource(corpus, 8).batches_per_epoch()
+    train_model(DESC, cfg(2), corpus, CPU, output_prefix=str(tmp_path / "m"), dump_every=per_epoch)
+    names = sorted(f for f in os.listdir(tmp_path) if f.endswith(".hdf5"))
+    assert names == sorted([f"m_1_{per_epoch}.hdf5", f"m_2_{2 * per_epoch}.hdf5",
+                            "m_1.hdf5", "m_2.hdf5"])
+
+
+K_CHOICES = {
+    "3": lambda n: 3, "epoch": lambda n: n, "past_the_epoch": lambda n: n + 10, "1": lambda n: 1,
+}
+
+
+@pytest.mark.parametrize("k_choice", sorted(K_CHOICES))
+def test_on_device_epoch_accounting(k_choice, caplog):
+    """Every full batch trains once per epoch: steps_epoch // K calls of K
+    steps and one remainder call (with a warning), K clamped to the epoch."""
+    corpus = small_corpus(docs_per_topic=4)
+    steps_epoch = TextEntitySource(corpus, 8).batches_per_epoch()
+    assert steps_epoch % 3  # K = 3 leaves a remainder
+    k = K_CHOICES[k_choice](steps_epoch)
+    with caplog.at_level(logging.WARNING, logger="cunvsm_torch.train.trainer"):
+        result = train_model(DESC, cfg(2), corpus, CPU, on_device_sampling=True, steps_per_call=k)
+    assert result.steps == 2 * steps_epoch
+    assert int(result.opt_state.word.t) == result.steps + 1
+    assert ("remainder" in caplog.text) == (k == 3)
+    assert all(np.isfinite(result.epoch_costs)) and result.batches_per_sec > 0
+
+
+def test_on_device_weighted_corpus_trains():
+    corpus = small_corpus()
+    result = train_model(DESC, cfg(2, uniform_feature_weights=False), corpus, CPU,
+                         on_device_sampling=True, steps_per_call=3,
+                         feature_weighting=FeatureWeighting.SELF_INFORMATION)
+    assert all(np.isfinite(result.epoch_costs)) and result.steps > 0
+
+
+def test_prefetch_depth_does_not_change_the_result():
+    corpus = small_corpus()
+    a = train_model(DESC, cfg(2), corpus, CPU, prefetch_depth=0)
+    b = train_model(DESC, cfg(2), corpus, CPU, prefetch_depth=3, log_every=2)
+    assert a.epoch_costs == b.epoch_costs
+    assert_same_state(a, b)
+
+
+def test_skip_epochs_matches_jax():
+    """The host stream after skip_epochs(n) is the JAX package's."""
+    from cunvsm_tpu.data.instances import TextEntitySource as JSource
+
+    corpus = small_corpus()
+    port, jax_source = TextEntitySource(corpus, 8, seed=5), JSource(corpus, 8, seed=5)
+    port.skip_epochs(2)
+    jax_source.skip_epochs(2)
+    for a, b in zip(port.epoch_batches(), jax_source.epoch_batches()):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_prefetcher_yields_in_order_and_raises_the_producer_error():
+    assert list(Prefetcher(iter(range(25)), depth=2)) == list(range(25))
+
+    def failing():
+        yield 1
+        raise KeyError("producer")
+
+    it = Prefetcher(failing(), depth=1)
+    assert next(it) == 1
+    with pytest.raises(KeyError, match="producer"):
+        next(it)
+
+
+def test_derived_seeds_differ_by_stream_and_counter():
+    seeds = {derived_seed(3, s, c) for s in (1, 2) for c in range(50)}
+    assert len(seeds) == 100 and all(0 <= s < 2**63 for s in seeds)
+    assert derived_seed(3, 1, 7) == derived_seed(3, 1, 7) != derived_seed(4, 1, 7)
+
+
+@pytest.mark.parametrize("kwargs,config,match", [
+    (dict(checkpoint_every=0), {}, "checkpoint_every"),
+    (dict(on_device_sampling=True), dict(reference_rng=True), "pick one"),
+    (dict(on_device_sampling=True), dict(no_shuffle=True), "stochastic-only"),
+    (dict(on_device_sampling=True, check_gradients=True), {}, "incompatible"),
+    (dict(steps_per_call=2, check_gradients=True), {}, "steps_per_call=1"),
+    (dict(stratify_data_groups=2), {}, "requires on_device_sampling"),
+    (dict(on_device_sampling=True, shard_corpus=True), {}, "requires a mesh"),
+    (dict(), dict(entity_entity_weight=0.5), "similarity source"),
+])
+def test_jax_guards_raise_value_error(kwargs, config, match):
+    with pytest.raises(ValueError, match=match):
+        train_model(DESC, cfg(1, **config), small_corpus(), CPU, **kwargs)
+
+
+@pytest.mark.parametrize("option,value,item", [
+    ("similarity_source", object(), "item 4"),
+    ("mesh", object(), "item 8"),
+    ("shard_corpus", True, "item 8"),
+    ("stratify_data_groups", 2, "item 8"),
+    ("check_gradients", True, "item 7"),
+    ("profile_dir", "trace", "item 7"),
+    ("compute_initial_cost", True, "item 7"),
+])
+def test_unported_options_raise(option, value, item):
+    kwargs = {option: value}
+    if option in ("shard_corpus", "stratify_data_groups"):
+        kwargs.update(on_device_sampling=True, mesh=None if option != "shard_corpus" else object())
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
+        train_model(DESC, cfg(1), small_corpus(), CPU, **kwargs)

@@ -15,6 +15,8 @@ import torch
 import cunvsm_tpu.config as jconfig
 from cunvsm_tpu.models import objectives as jobj
 from cunvsm_tpu.models.params import ModelParams as JModelParams
+from cunvsm_tpu.optim import updates as jupd
+from cunvsm_tpu.train import step as jstep
 from cunvsm_torch.config import (
     AdamConfig,
     AdamMode,
@@ -113,3 +115,29 @@ def to_np(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def jax_train_step(jparams, jstate, jbatch, ids, pooled, desc, cfg, stride):
+    """One JAX step (objective + Optimizer.apply) on the given negative
+    ids: the [P] pool when ``pooled``, else [B, k] per instance."""
+    jdesc, jcfg = twin(desc), twin(cfg)
+    kw = dict(
+        stream_dtype=jcfg.resolved_stream_dtype(),
+        uniform_feature_weights=jcfg.uniform_feature_weights,
+        window_sum_dtype=jcfg.resolved_window_sum_dtype(),
+    )
+    if pooled:
+        cost, _, grads = jobj.text_entity_cost_and_grads_pooled(
+            jparams, jbatch, jnp.asarray(ids), jcfg.num_random_entities, jdesc,
+            pool_stride=stride, **kw
+        )
+    else:
+        entity_ids = jnp.concatenate([jbatch.labels[:, None], jnp.asarray(ids)], axis=1)
+        cost, _, grads = jobj.text_entity_cost_and_grads(
+            jparams, jbatch, entity_ids, jdesc, factored_entity_grads=True, **kw
+        )
+    lam = jstep.scaled_regularization_lambda(jcfg, jstep.ObjectiveKind.TEXT_ENTITY)
+    jparams, jstate = jupd.Optimizer(jcfg).apply(
+        jparams, jstate, grads, jcfg.resolved_learning_rate(), lam
+    )
+    return jparams, jstate, cost
