@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
-    python3 chip_smoke.py        # about two minutes
+    python3 chip_smoke.py [--seed N]     # about three minutes
 
 It builds both kernels from the sources in the checkout: the sweep with
 Triton (its cache goes under build/triton) and the cast with nvcc (into
@@ -34,15 +34,38 @@ build/cuda), and runs the port's main path:
      against the corpus; D2 train_model(on_device_sampling=True) for 2
      epochs into HDF5 checkpoints under build/, the last read back
      bitwise, then a resumed third epoch.  Every cost finite, the sweep
-     launched twice and the cast once per step.
+     launched twice and the cast once per step;
+  E0 three small steps of each of eight more configurations on the card
+     (float32, kernels) against the same steps on the CPU (float64, plain
+     versions), fed the same draws: sgd, adagrad, sparse_adam and
+     dense_adam; full_adam with the entity L2 normalizer; full_adam with
+     batch-shared negatives; the two "Mix 'n Match" composites
+     (TEXT_ENTITY_ENTITY_ENTITY, TEXT_ENTITY_TERM_TERM) under full_adam;
+  E  the same eight at phase B's full width on phase B's corpus: the six
+     text-entity ones through on-device sampling, one warm-up call and one
+     timed call of K = 13 steps under set_sync_debug_mode("error"); the two
+     composites through train_model(similarity_source=...) on the host-fed
+     path for 2 epochs, fed a similarity file of one pair per document made
+     from --seed and read back with load_similarities.  Each prints
+     ms/step, pairs/s, peak MiB, its first and last cost (all finite) and
+     its negative layout, and asserts its launches per step: the sweep 2
+     under full_adam and 0 otherwise, the cast 1 where the factored,
+     pooled or shared path runs under bfloat16 streams and 0 on the
+     expanded per-instance path.
 
 Without a CUDA device it exits with an error before printing any result.
 The last line of its output is one JSON object with "ok" and the device;
-the line before it lists each kernel with its launches, error and times.
+the line before it lists each kernel with its launches (in all and by
+phase), error, times, the least time the card could take for the same
+work (``bound_ms``: the bytes it must move over 3.35 TB/s, or its float32
+operations over 67 TFLOP/s, whichever is larger; ``bound_by`` says which)
+and the time of one PyTorch call computing the same function
+(``library_ms``; null where there is none).
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -67,16 +90,22 @@ from cunvsm_torch.config import (
 from cunvsm_torch.data import device_sampler
 from cunvsm_torch.data.corpus import build_corpus
 from cunvsm_torch.data.instances import TextEntitySource
+from cunvsm_torch.data.sources import SimilaritySource, load_similarities
 from cunvsm_torch.data.synth import zipf_corpus
 from cunvsm_torch.io import checkpoint
-from cunvsm_torch.models.objectives import TextEntityBatch
+from cunvsm_torch.models.objectives import SimilarityBatch, TextEntityBatch
 from cunvsm_torch.models.params import init_params, params_from_numpy, params_to_numpy
 from cunvsm_torch.ops import adam_sweep, cast, cuda_build
 from cunvsm_torch.optim.updates import Optimizer
 from cunvsm_torch.query.engine import QueryEngine, _rank_kernel
 from cunvsm_torch.query.metrics import evaluate_run
-from cunvsm_torch.train.step import make_train_step, resolve_negative_sampling
-from cunvsm_torch.train.trainer import train_model
+from cunvsm_torch.train.step import (
+    ObjectiveKind,
+    make_train_step,
+    objective_kind_from_config,
+    resolve_negative_sampling,
+)
+from cunvsm_torch.train.trainer import negative_layout, train_model
 
 # The canonical configuration (bench.py), the size of phase B and the
 # steps per call of phase D (a divisor of the epoch's 117 steps).
@@ -87,6 +116,13 @@ CANONICAL = dict(
 )
 BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 SWEEP_HYPER = dict(lam=0.01 / 51200, beta1=0.9, beta2=0.999, eps=1e-6)
+# The card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): HBM bytes/s
+# and float32 operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Float32 operations per element: the sweep's agg = s - lam*p (2), m' (3),
+# v' (4) and p' = p + scale*m'/(sqrt(v')+eps) (5); the cast's rounding (1).
+SWEEP_OPS, CAST_OPS = 14, 1
 
 
 def log(msg: str) -> None:
@@ -147,6 +183,14 @@ def paired_ms(kernel_fn, plain_fn) -> dict:
 def format_ms(t: dict) -> str:
     return (f"kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} (20 back to back); "
             f"per call kernel {t['ms_per_call']:.4f} plain {t['plain_ms_per_call']:.4f}")
+
+
+def bound(num_bytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes over the HBM rate or
+    operations over the float32 rate, whichever is larger."""
+    bytes_ms, ops_ms = 1e3 * num_bytes / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def canonical_desc_cfg(sizes):
@@ -271,7 +315,7 @@ def phase_a(device, sizes):
     t0 = time.perf_counter()
     cuda_build.build_library("cast_bf16", ("cast_bf16.cu",))
     log(f"A nvcc build of the cast: {time.perf_counter() - t0:.1f}s")
-    sweep_err, sweep_t = 0.0, {}
+    sweep_err, sweep_t, elements = 0.0, {}, 0
     for rows, dim in ((sizes["num_words"], sizes["word_dim"]),
                       (sizes["num_entities"], sizes["entity_dim"])):
         (p, m, v, s, scale), got, err = check_sweep(device, rows, dim, gen)
@@ -285,8 +329,13 @@ def phase_a(device, sizes):
         log(f"A sweep [{rows}, {dim}]: bitwise equal, max_abs_err={err:.3e} {format_ms(t)} "
             f"kernel_GB/s={gbs:.0f}")
         sweep_t = {k: sweep_t.get(k, 0.0) + t[k] for k in t}
+        elements += rows * dim
         del s, m, v, p, ref, got
-    out["sweep"] = dict(max_abs_err=sweep_err, **sweep_t)
+    # p, m, v and s read once, p, m and v written once: 28 B per element.
+    # No library call computes this function (torch._fused_adam_ scales eps
+    # by sqrt(1 - beta2^t), descends, and folds L2 into the gradient).
+    out["sweep"] = dict(max_abs_err=sweep_err, **sweep_t,
+                        **bound(28 * elements, SWEEP_OPS * elements), library_ms=None)
 
     operands = cast_operands(device, sizes, gen)
     y = [check_cast(name, x) for name, x in operands][0]
@@ -298,7 +347,10 @@ def phase_a(device, sizes):
     log(f"A cast {operands[0][0]}: {format_ms(t)} kernel_GB/s="
         f"{6 * x.numel() / (t['ms'] * 1e-3) / 1e9:.0f} plain_GB/s="
         f"{6 * x.numel() / (t['plain_ms'] * 1e-3) / 1e9:.0f}")
-    out["cast"] = dict(max_abs_err=err, **t)
+    # The plain version is the library call x.to(torch.bfloat16): its time
+    # is plain_ms.  4 B read and 2 B written per element.
+    out["cast"] = dict(max_abs_err=err, **t, **bound(6 * x.numel(), CAST_OPS * x.numel()),
+                       library_ms=t["plain_ms"])
     return out
 
 
@@ -482,25 +534,29 @@ def reset_launches():
     cast.cast_table.launches = 0
 
 
-def read_launches(steps, phase):
+def read_launches(steps, phase, per_step=None):
     """The launch counts since ``reset_launches``; raises unless the path
-    launched the sweep twice and the cast once per step."""
+    launched each kernel ``per_step`` times per step (by default the sweep
+    twice and the cast once)."""
+    per_step = per_step or {"sweep": 2, "cast": 1}
     launches = {
         "sweep": adam_sweep.fused_adam_dense_sweep.launches,
         "cast": cast.cast_table.launches,
     }
-    if launches != {"sweep": 2 * steps, "cast": steps}:
-        raise AssertionError(f"{phase}: kernel launches {launches} for {steps} steps")
+    if launches != {key: n * steps for key, n in per_step.items()}:
+        raise AssertionError(f"{phase}: kernel launches {launches} for {steps} steps, "
+                             f"expected {per_step} per step")
     log(f"{phase} launches: {launches} over {steps} steps")
     return launches
 
 
-def on_device_training(device, sizes, corpus):
-    """The canonical configuration through on-device sampling on
-    ``corpus``.  Returns ``run(calls, start_call=0) -> costs``, which trains
-    ``calls`` calls of K steps from one shuffled epoch, and the device
-    corpus, the shuffled pointers and steps_epoch."""
-    desc, cfg = canonical_desc_cfg(sizes)
+def on_device_training(device, sizes, corpus, variant=None):
+    """The canonical configuration, or the text-entity ``variant`` of
+    ``E_CONFIGS``, through on-device sampling on ``corpus``.  Returns
+    ``run(calls, start_call=0) -> costs``, which trains ``calls`` calls of K
+    steps from one shuffled epoch, and the device corpus, the shuffled
+    pointers and steps_epoch."""
+    desc, cfg = variant_desc_cfg(sizes, variant) if variant else canonical_desc_cfg(sizes)
     batch, k = sizes["batch"], sizes["steps_per_call"]
     dc = device_sampler.prepare_device_corpus(corpus, device)
     permute, n_ptrs = device_sampler.make_epoch_permuter(dc)
@@ -644,6 +700,188 @@ def phase_d2(device, sizes, corpus):
     return stats, launches
 
 
+# Phases E0 and E: (overrides of the canonical TrainConfig, of its
+# ModelDesc).  Mixture weights as tests/test_gradcheck_training.py's.
+E_CONFIGS = {
+    "sgd": (dict(update_method=UpdateMethod.SGD), {}),
+    "adagrad": (dict(update_method=UpdateMethod.ADAGRAD), {}),
+    "sparse_adam": (dict(adam=AdamConfig(mode=AdamMode.SPARSE)), {}),
+    "dense_adam": (dict(adam=AdamConfig(mode=AdamMode.DENSE_UPDATE)), {}),
+    "full_adam_entity_l2": ({}, dict(l2_normalize_entity_reprs=True)),
+    "full_adam_shared": (dict(shared_negatives=True), {}),
+    "full_adam_entity_entity": (dict(text_entity_weight=0.7, entity_entity_weight=0.3), {}),
+    "full_adam_term_term": (dict(text_entity_weight=0.6, term_term_weight=0.4), {}),
+}
+
+
+def variant_desc_cfg(sizes, name, **cfg_overrides):
+    desc, cfg = canonical_desc_cfg(sizes)
+    cfg_kw, desc_kw = E_CONFIGS[name]
+    return (dataclasses.replace(desc, **desc_kw),
+            dataclasses.replace(cfg, **cfg_kw, **cfg_overrides))
+
+
+def expected_launches(cfg, desc, num_entities) -> dict:
+    """Kernel launches per step: the sweep twice under full_adam; the cast
+    once where the pooled, shared or factored path runs under bfloat16
+    streams, none on the expanded per-instance path (the window-averaged
+    optimizers, the entity L2 normalizer)."""
+    full_adam = (cfg.update_method == UpdateMethod.ADAM
+                 and cfg.adam.mode == AdamMode.DENSE_UPDATE_DENSE_VARIANCE)
+    pool, _ = resolve_negative_sampling(cfg, desc, cfg.batch_size, num_entities)
+    factored = ((full_adam or cfg.update_method == UpdateMethod.SGD)
+                and not desc.l2_normalize_entity_reprs)
+    streams = cfg.resolved_stream_dtype() == "bfloat16"
+    casts = streams and (pool > 0 or cfg.shared_negatives or factored)
+    return {"sweep": 2 if full_adam else 0, "cast": 1 if casts else 0}
+
+
+def phase_e0(device):
+    """Three small steps of each E configuration on the card (float32,
+    kernels) against the same steps on the CPU (float64, plain versions),
+    fed the same draws."""
+    sizes = dict(CANONICAL, num_words=64, num_entities=48, word_dim=12, entity_dim=8,
+                 batch=32, window=4, negatives=3)
+    worst = {}
+    for name, (cfg_kw, _) in E_CONFIGS.items():
+        pooled = cfg_kw.get("update_method") == UpdateMethod.SGD or "text_entity_weight" in cfg_kw
+        desc, cfg = variant_desc_cfg(sizes, name, stream_dtype="float32",
+                                     window_sum_dtype="float32",
+                                     negative_pool_size=8 if pooled else -1)
+        kind = objective_kind_from_config(cfg)
+        pool, _ = resolve_negative_sampling(cfg, desc, 32, 48)
+        init = init_params(torch.Generator().manual_seed(0), 64, 48, desc, dtype=torch.float64)
+        runs = []
+        for dev, dtype in ((device, torch.float32), (torch.device("cpu"), torch.float64)):
+            params = params_from_numpy(params_to_numpy(init), dev, dtype)
+            state = Optimizer(cfg).init(params)
+            step = make_train_step(desc, cfg, dev, None)
+            rng = np.random.RandomState(1)
+            costs = []
+            for _ in range(3):
+                batch = TextEntityBatch(
+                    torch.as_tensor(rng.randint(0, 64, (32, 4)), device=dev),
+                    torch.ones((32, 4), dtype=dtype, device=dev),
+                    torch.as_tensor(rng.randint(0, 48, 32), device=dev),
+                    torch.as_tensor(rng.uniform(0.5, 1.5, 32), dtype=dtype, device=dev),
+                )
+                if pool:
+                    ids = rng.randint(0, 48, pool)
+                elif cfg.shared_negatives:
+                    ids = rng.randint(0, 48, 3)
+                else:
+                    ids = rng.randint(0, 48, (32, 3))
+                if kind != ObjectiveKind.TEXT_ENTITY:
+                    rows = 48 if kind == ObjectiveKind.TEXT_ENTITY_ENTITY_ENTITY else 64
+                    batch = (batch, SimilarityBatch(
+                        torch.as_tensor(rng.randint(0, rows, (32, 2)), device=dev),
+                        torch.as_tensor(rng.uniform(0.5, 1.5, 32), dtype=dtype, device=dev)))
+                costs.append(float(step(params, state, batch,
+                                        negative_ids=torch.as_tensor(ids, device=dev))))
+            runs.append((np.array(costs), params_to_numpy(params)))
+        (gc, gp), (cc, cp) = runs
+        table_err = max(float(np.abs(g.astype(np.float64) - c).max()) for g, c in zip(gp, cp))
+        cost_err = float(np.abs(gc - cc).max() / np.abs(cc).max())
+        moved = max(float(np.abs(c - i).max()) for c, i in zip(cp, params_to_numpy(init)))
+        log(f"E0 {name} ({negative_layout(cfg, desc, 48)}): card f32 vs cpu f64 "
+            f"cost_rel_err={cost_err:.3e} table_max_abs_err={table_err:.3e} "
+            f"(tables moved by up to {moved:.3e})")
+        if not (cost_err < 1e-5 and table_err < 1e-4 and moved > 0.0):
+            raise AssertionError(f"E0 {name}: the card's small steps disagree with the CPU")
+        worst[name] = (cost_err, table_err)
+    return worst
+
+
+def write_similarity_file(path, names, num_pairs, seed):
+    """``num_pairs`` lines ``name name weight`` of uniform random pairs."""
+    rng = np.random.RandomState(seed)
+    a, b = rng.randint(0, len(names), num_pairs), rng.randint(0, len(names), num_pairs)
+    w = rng.uniform(0.5, 1.5, num_pairs)
+    with open(path, "w") as f:
+        f.writelines(f"{names[i]} {names[j]} {x:.6f}\n" for i, j, x in zip(a, b, w))
+
+
+def e_on_device(device, sizes, name, dc, permute, seed):
+    """One warm-up call and one timed call of K steps, on-device sampling."""
+    desc, cfg = variant_desc_cfg(sizes, name)
+    batch, k, n_ent = sizes["batch"], sizes["steps_per_call"], sizes["num_entities"]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(gen, sizes["num_words"], n_ent, desc, device=device)
+    state = Optimizer(cfg).init(params)
+    multistep = device_sampler.make_device_sampled_multistep(
+        desc, cfg, dc, k, gen, num_entities=n_ent)
+    doc_perm = permute(gen)
+    warm = multistep(params, state, doc_perm, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    try:
+        timed = multistep(params, state, doc_perm, k * batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    costs = torch.cat([warm, timed]).cpu().numpy()
+    return desc, cfg, k, dict(
+        ms_per_step=1e3 * elapsed / k, pairs_per_s=batch * k / elapsed,
+        first_cost=float(costs[0]), last_cost=float(costs[-1]), all_costs_finite=bool(
+            np.all(np.isfinite(costs))))
+
+
+def e_composite(device, sizes, name, corpus, seed):
+    """train_model(similarity_source=...) on the host-fed path, 2 epochs."""
+    desc, cfg = variant_desc_cfg(sizes, name, num_epochs=2, seed=seed)
+    kind = objective_kind_from_config(cfg)
+    names = corpus.docnos if kind == ObjectiveKind.TEXT_ENTITY_ENTITY_ENTITY else corpus.vocab.terms
+    os.makedirs(BUILD, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase_e_", dir=BUILD)
+    try:
+        path = os.path.join(tmp, "similarities.txt")
+        write_similarity_file(path, names, corpus.num_docs, seed)
+        ids, weights = load_similarities(path, {n: i for i, n in enumerate(names)})
+    finally:
+        shutil.rmtree(tmp)
+    if ids.shape[0] != corpus.num_docs:
+        raise AssertionError(f"E {name}: {ids.shape[0]} of {corpus.num_docs} pairs read back")
+    source = SimilaritySource(ids, weights, batch_size=sizes["batch"], seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    result = train_model(desc, cfg, corpus, device, similarity_source=source)
+    torch.cuda.synchronize()
+    costs = result.epoch_costs
+    return desc, cfg, result.steps, dict(
+        ms_per_step=1e3 / result.batches_per_sec,
+        pairs_per_s=sizes["batch"] * result.batches_per_sec,
+        first_cost=costs[0], last_cost=costs[-1], all_costs_finite=bool(np.all(np.isfinite(costs))),
+        similarity_pairs=int(ids.shape[0]),
+    )
+
+
+def phase_e(device, sizes, corpus, seed):
+    """Every E configuration at full width; returns the summed launches."""
+    dc = device_sampler.prepare_device_corpus(corpus, device)
+    permute, _ = device_sampler.make_epoch_permuter(dc)
+    total = {"sweep": 0, "cast": 0}
+    for name, (cfg_kw, _) in E_CONFIGS.items():
+        if "text_entity_weight" in cfg_kw:
+            desc, cfg, steps, stats = e_composite(device, sizes, name, corpus, seed)
+        else:
+            desc, cfg, steps, stats = e_on_device(device, sizes, name, dc, permute, seed)
+        stats["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        stats["negatives"] = negative_layout(cfg, desc, sizes["num_entities"])
+        log(f"E {name} " + json.dumps(stats))
+        if not stats["all_costs_finite"]:
+            raise AssertionError(f"E {name}: a cost is not finite")
+        launches = read_launches(steps, f"E {name}",
+                                 expected_launches(cfg, desc, sizes["num_entities"]))
+        total = {key: total[key] + launches[key] for key in total}
+        torch.cuda.empty_cache()
+    return total
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -653,6 +891,10 @@ def gpu_name_and_power() -> str:
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of phase E's parameters, draws and similarity pairs")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; the smoke test runs only on a GPU")
     device = torch.device("cuda")
@@ -677,6 +919,8 @@ def main():
     del params_b
     by_path["D1"] = phase_d1(device, CANONICAL, corpus_b)[1]
     by_path["D2"] = phase_d2(device, CANONICAL, corpus_b)[1]
+    phase_e0(device)
+    by_path["E"] = phase_e(device, CANONICAL, corpus_b, args.seed)
     launches = {key: sum(p[key] for p in by_path.values()) for key in ("sweep", "cast")}
 
     meta = {

@@ -35,7 +35,7 @@ import torch
 from cunvsm_torch.data.corpus import Corpus
 from cunvsm_torch.data.instances import FeatureWeighting, Weighting
 from cunvsm_torch.models.objectives import TextEntityBatch
-from cunvsm_torch.train.step import make_train_step
+from cunvsm_torch.train.step import ObjectiveKind, make_train_step, objective_kind_from_config
 
 
 class DeviceCorpus(NamedTuple):
@@ -183,7 +183,7 @@ class StepDraws(NamedTuple):
     """The draws of one step, injected in place of the generator's."""
 
     uniforms: torch.Tensor  # [B] float32 window placements
-    negative_ids: torch.Tensor  # [P] pool ids or [B, k] negatives
+    negative_ids: torch.Tensor  # [P] pool ids, [k] shared ids or [B, k] negatives
 
 
 def make_device_sampled_multistep(
@@ -205,8 +205,11 @@ def make_device_sampled_multistep(
     ``make_epoch_permuter``); the cursor is host arithmetic.  Each step
     draws its uniforms, then its negatives, from ``generator``, unless
     ``draws`` gives K ``StepDraws``.  Nothing in a call waits for the
-    device, so the K steps are enqueued back to back.
+    device, so the K steps are enqueued back to back.  Only the text-entity
+    objective samples on the device.
     """
+    if objective_kind_from_config(cfg) != ObjectiveKind.TEXT_ENTITY:
+        raise ValueError("on-device sampling supports only the text-entity objective")
     step = make_train_step(
         desc, cfg, dc.tokens.device, generator, num_entities=num_entities
     )

@@ -84,5 +84,6 @@ def params_from_numpy(params, device=None, dtype=None) -> ModelParams:
 
 
 def params_to_numpy(params: ModelParams) -> ModelParams:
-    """The same NamedTuple holding numpy arrays (host copies)."""
-    return ModelParams(*(t.detach().cpu().numpy() for t in params))
+    """The same NamedTuple holding numpy arrays (host copies: of a CPU
+    tensor too, which the in-place steps would otherwise change)."""
+    return ModelParams(*(t.detach().cpu().numpy().copy() for t in params))

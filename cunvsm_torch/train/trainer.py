@@ -1,11 +1,13 @@
-"""Epoch loop for the TEXT_ENTITY objective, host-fed or sampled on the
-device, with HDF5 checkpoints and resume.
+"""Epoch loop for every objective, host-fed or (text-entity only) sampled
+on the device, with HDF5 checkpoints and resume.
 
 Port of the single-device paths of ``cunvsm_tpu/train/trainer.py``:
 
 * **host-fed**: batches come from ``data.instances.TextEntitySource`` on
   the host, assembled and copied to ``device`` on a prefetch thread
-  (``data.sources.Prefetcher``);
+  (``data.sources.Prefetcher``); a composite objective zips them in
+  lockstep with an endlessly repeating ``similarity_source`` (the text
+  stream paces the epoch, main.cu:256-258);
 * **on-device sampling** (``on_device_sampling=True``): the corpus lives on
   the device and every call of ``steps_per_call`` steps samples its own
   batches from the epoch's shuffled pointers (``data.device_sampler``).
@@ -30,7 +32,8 @@ their window placements and negatives in order.  Parameters are
 Glorot-initialized from the generator seeded with ``cfg.seed``.  A resumed
 run therefore draws what an uninterrupted run would have drawn; the
 host-fed path replays its numpy batch stream with
-``TextEntitySource.skip_epochs``.
+``TextEntitySource.skip_epochs`` and fast-forwards the similarity stream
+past the batches already trained.
 """
 
 from __future__ import annotations
@@ -48,12 +51,17 @@ from cunvsm_torch.config import ModelDesc, TrainConfig
 from cunvsm_torch.data import device_sampler
 from cunvsm_torch.data.corpus import Corpus
 from cunvsm_torch.data.instances import FeatureWeighting, TextEntitySource, Weighting
-from cunvsm_torch.data.sources import Prefetcher
+from cunvsm_torch.data.sources import Prefetcher, SimilaritySource, repeating, zip_sources
 from cunvsm_torch.io import checkpoint as ckpt
-from cunvsm_torch.models.objectives import TextEntityBatch
+from cunvsm_torch.models.objectives import SimilarityBatch, TextEntityBatch
 from cunvsm_torch.models.params import ModelParams, init_params
 from cunvsm_torch.optim.updates import Optimizer, OptState
-from cunvsm_torch.train.step import make_train_step
+from cunvsm_torch.train.step import (
+    ObjectiveKind,
+    make_train_step,
+    objective_kind_from_config,
+    resolve_negative_sampling,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -82,7 +90,7 @@ def _not_ported(option: str, item: str):
     return NotImplementedError(f"{option} is not ported yet (ROADMAP.md queue 1, {item})")
 
 
-def _check_options(cfg, on_device_sampling, steps_per_call, checkpoint_every,
+def _check_options(cfg, kind, on_device_sampling, steps_per_call, checkpoint_every,
                    similarity_source, mesh, shard_corpus, stratify_data_groups,
                    check_gradients, profile_dir, compute_initial_cost):
     """The JAX trainer's guards as ValueErrors with its conditions, then
@@ -94,13 +102,12 @@ def _check_options(cfg, on_device_sampling, steps_per_call, checkpoint_every,
             "reference_rng replays the host minstd_rand0 pipeline; "
             "on_device_sampling draws on device — pick one"
         )
-    composite = cfg.entity_entity_weight != 0.0 or cfg.term_term_weight != 0.0
-    if composite and similarity_source is None:
-        raise ValueError("a composite objective requires a similarity source")
+    if kind != ObjectiveKind.TEXT_ENTITY and similarity_source is None:
+        raise ValueError(f"objective {kind} requires a similarity source")
     if stratify_data_groups and not on_device_sampling:
         raise ValueError("stratify_data_groups requires on_device_sampling")
     if on_device_sampling:
-        if composite:
+        if kind != ObjectiveKind.TEXT_ENTITY:
             raise ValueError("on-device sampling supports only the text-entity objective")
         if cfg.no_shuffle:
             raise ValueError("on-device sampling is stochastic-only")
@@ -116,7 +123,6 @@ def _check_options(cfg, on_device_sampling, steps_per_call, checkpoint_every,
     elif steps_per_call > 1 and check_gradients:
         raise ValueError("check_gradients requires steps_per_call=1")
     for option, value, item in (
-        ("similarity_source", similarity_source is not None, "item 4, composite objectives"),
         ("mesh", mesh is not None, "item 8, multi-GPU"),
         ("shard_corpus", shard_corpus, "item 8, multi-GPU"),
         ("stratify_data_groups", stratify_data_groups, "item 8, multi-GPU"),
@@ -128,13 +134,23 @@ def _check_options(cfg, on_device_sampling, steps_per_call, checkpoint_every,
             raise _not_ported(option, item)
 
 
+def negative_layout(cfg: TrainConfig, desc: ModelDesc, num_entities: int) -> str:
+    """The negative sampling that ``cfg`` resolves to at its batch size."""
+    pool, stride = resolve_negative_sampling(cfg, desc, cfg.batch_size, num_entities)
+    if cfg.shared_negatives:
+        return f"batch-shared (k={cfg.num_random_entities})"
+    if pool:
+        return f"rolled pool P={pool} stride={stride} (k={cfg.num_random_entities})"
+    return f"per-instance (k={cfg.num_random_entities})"
+
+
 def train_model(
     desc: ModelDesc,
     cfg: TrainConfig,
     corpus: Corpus,
     device,
     output_prefix: Optional[str] = None,
-    similarity_source=None,
+    similarity_source: Optional[SimilaritySource] = None,
     feature_weighting: FeatureWeighting = FeatureWeighting.UNIFORM,
     weighting: Weighting = Weighting.AUTOMATIC,
     compute_initial_cost: bool = False,
@@ -156,6 +172,9 @@ def train_model(
 ) -> TrainResult:
     """Train a model over ``corpus`` for ``cfg.num_epochs`` epochs on
     ``device``; the options are the JAX trainer's (see the module doc).
+    The objective follows the mixture weights of ``cfg``; a composite needs
+    ``similarity_source`` (``data.sources.SimilaritySource``), whose pairs
+    index the entity table (entity-entity) or the word table (term-term).
 
     ``steps_per_call`` is the K of the on-device path; the host-fed path
     reseeds its generator per call of K steps as the JAX package keys its
@@ -165,7 +184,8 @@ def train_model(
     scratch without one).  ``epoch_callback(epoch, params, cost)`` runs
     after each epoch, once that epoch's checkpoint is on disk.
     """
-    _check_options(cfg, on_device_sampling, steps_per_call, checkpoint_every,
+    kind = objective_kind_from_config(cfg)
+    _check_options(cfg, kind, on_device_sampling, steps_per_call, checkpoint_every,
                    similarity_source, mesh, shard_corpus, stratify_data_groups,
                    check_gradients, profile_dir, compute_initial_cost)
     # UNIFORM feature weighting means every batch's feature_weights are all
@@ -199,6 +219,12 @@ def train_model(
         if not on_device_sampling:
             source.skip_epochs(last_epoch)
         logger.info("Resumed from epoch %d at step %d.", last_epoch, total_batches)
+    sim_iter = iter(repeating(similarity_source)) if similarity_source is not None else None
+    if sim_iter is not None:
+        # Fast-forward the similarity stream past the batches trained.
+        for _ in range(total_batches):
+            next(sim_iter)
+    logger.info("Negative sampling: %s.", negative_layout(cfg, desc, corpus.num_docs))
 
     if output_prefix and start_epoch == 1:
         # One-time metadata and sidecars (main.cu:527-537).
@@ -240,8 +266,18 @@ def train_model(
         batches_per_epoch = source.batches_per_epoch()
         grouped = batches_per_epoch // k * k  # later steps run as calls of one
 
+    def to_device(b):
+        if kind == ObjectiveKind.TEXT_ENTITY:
+            return TextEntityBatch.from_numpy(b, device, dtype)
+        te, sim = b
+        return (TextEntityBatch.from_numpy(te, device, dtype),
+                SimilarityBatch.from_numpy(sim, device, dtype))
+
     def host_batches():
-        batches = (TextEntityBatch.from_numpy(b, device, dtype) for b in source.epoch_batches())
+        batches = source.epoch_batches()
+        if kind != ObjectiveKind.TEXT_ENTITY:
+            batches = zip_sources(batches, sim_iter)
+        batches = (to_device(b) for b in batches)
         return Prefetcher(batches, depth=prefetch_depth) if prefetch_depth > 0 else batches
 
     writer = ckpt.AsyncCheckpointWriter() if output_prefix else None

@@ -5,17 +5,21 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 profile_torch_step.py --out DIR              # host-fed steps
     python3 profile_torch_step.py --out DIR --on-device  # on-device sampling
+    python3 profile_torch_step.py --out DIR --variant sparse_adam  # on-device
 
 It sets up the canonical configuration at full width, host-fed as in
 ``chip_smoke.py``'s phase B, or with ``--on-device`` through the on-device
 sampler and the multistep runner as in its phase D1 (calls of K = 13
 steps).  It takes warm-up steps, times STEPS steps without the profiler
-(wall ms/step), then takes as many again under ``torch.profiler``.  It
+(wall ms/step), then takes as many again under ``torch.profiler``.
+``--variant`` profiles one of the text-entity configurations of
+``chip_smoke.py``'s phase E (another optimizer, the entity L2 normalizer or
+batch-shared negatives) on the on-device path instead.  It
 prints the device's busy time per step (the union of the intervals of
 every kernel and copy on the card), the device's idle share against the
 unprofiled wall time, and the device time per step of each kernel name, and
 writes the profiler's table into ``DIR/profile_canonical_step.txt`` (or
-``DIR/profile_on_device_step.txt``).
+``DIR/profile_on_device_step.txt``, ``DIR/profile_on_device_step_VARIANT.txt``).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (
     CANONICAL,
+    E_CONFIGS,
     canonical_corpus,
     canonical_training,
     gpu_name_and_power,
@@ -62,7 +67,11 @@ def main():
     ap.add_argument("--out", required=True, help="directory for the profiler's table")
     ap.add_argument("--on-device", action="store_true",
                     help="profile the on-device sampling multistep instead of host-fed steps")
+    ap.add_argument("--variant", choices=[n for n, (kw, _) in E_CONFIGS.items()
+                                          if "text_entity_weight" not in kw],
+                    help="a phase E configuration in place of the canonical one (on-device)")
     args = ap.parse_args()
+    args.on_device = args.on_device or args.variant is not None
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_step.py: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -74,7 +83,8 @@ def main():
     if args.on_device:
         # Calls of K steps along one shuffled epoch (9 calls of 13).
         k = CANONICAL["steps_per_call"]
-        multistep, *_ = on_device_training(device, CANONICAL, canonical_corpus(CANONICAL))
+        multistep, *_ = on_device_training(device, CANONICAL, canonical_corpus(CANONICAL),
+                                           args.variant)
         done = [0]
 
         def run(n):
@@ -82,7 +92,8 @@ def main():
             done[0] += n // k
             return None, 0.0
 
-        steps, warmup, table = 2 * k, k, "profile_on_device_step.txt"
+        steps, warmup = 2 * k, k
+        table = f"profile_on_device_step{'_' + args.variant if args.variant else ''}.txt"
     else:
         run, *_ = canonical_training(device, CANONICAL)
         steps, warmup, table = STEPS, CANONICAL["warmup"], "profile_canonical_step.txt"
@@ -116,7 +127,7 @@ def main():
     for name, ms in by_name.most_common(30):
         log(f"  {ms:8.4f}  {name[:110]}")
     log(json.dumps(dict(
-        path="on_device" if args.on_device else "host_fed",
+        path="on_device" if args.on_device else "host_fed", variant=args.variant,
         steps=steps, wall_ms_per_step=wall_ms,
         host_batch_ms_per_step=1e3 * host_s / steps,
         profiled_wall_ms_per_step=profiled_wall_ms,

@@ -7,7 +7,9 @@
   JAX package's ``build_metadata`` (OOV slot, negative and zero ids
   included), and each side parses the other's;
 * ``<prefix>_resume.npz``: the JAX loader reads the port's file into its own
-  trees; the port restores its tensors in place;
+  trees, and the port the JAX writer's, for every optimizer (SGD has no
+  state leaves; Adagrad's accumulators and sparse Adam's [N] variance are
+  in the JAX flatten order); the port restores its tensors in place;
 * ``AsyncCheckpointWriter``: the error and order contract of
   tests/test_checkpoint.py, and the snapshot taken at submission.
 """
@@ -24,7 +26,8 @@ from cunvsm_torch.io import checkpoint as tckpt
 from cunvsm_torch.io import hdf5
 from cunvsm_torch.models.params import ModelParams, init_params
 from cunvsm_torch.optim.updates import Optimizer
-from tests.torch_parity import train_config, twin
+from cunvsm_torch.config import UPDATE_METHOD_NAMES
+from tests.torch_parity import optimizer_config, train_config, twin
 
 h5py = pytest.importorskip("h5py")
 jckpt = pytest.importorskip("cunvsm_tpu.io.checkpoint")  # needs protobuf too
@@ -336,3 +339,48 @@ def test_async_writer_snapshots_card_tensors_at_submission(tmp_path):
         loaded = tckpt.load_model_hdf5(str(tmp_path / "m"), epoch)
         for a, b in zip(before, loaded):
             assert torch.equal(a * 2.0 ** epoch, b)
+
+
+def _state_of(name, seed):
+    cfg = optimizer_config(name)
+    params = make_params(seed=seed)
+    state = Optimizer(cfg).init(params)
+    g = torch.Generator().manual_seed(seed)
+    for s in state:
+        for t in s:
+            if t.dtype.is_floating_point:
+                t.uniform_(0, 1, generator=g)
+            else:
+                t.fill_(seed)
+    return params, state, cfg
+
+
+@pytest.mark.parametrize("name", sorted(UPDATE_METHOD_NAMES))
+def test_resume_file_of_every_optimizer_is_read_by_the_jax_loader(tmp_path, name):
+    params, state, cfg = _state_of(name, 11)
+    prefix = str(tmp_path / "m")
+    tckpt.save_training_state(prefix, params, state, 4, extra={"total_batches": np.asarray(8)})
+    jparams = JModelParams(*(np.zeros_like(a) for a in as_numpy(params)))
+    jstate = JOptimizer(twin(cfg)).init(jparams)
+    p2, s2, epoch, extra = jckpt.load_training_state(prefix, jparams, jstate)
+    assert epoch == 4 and int(extra["total_batches"]) == 8
+    for a, b in zip(tckpt.state_leaves(params, state),
+                    [*p2, *(leaf for sub in s2 for leaf in sub)]):
+        np.testing.assert_array_equal(np.asarray(b), a.numpy())
+    assert [type(s).__name__ for s in s2] == [type(s).__name__ for s in state]
+
+
+@pytest.mark.parametrize("name", sorted(UPDATE_METHOD_NAMES))
+def test_port_reads_the_jax_resume_file_of_every_optimizer(tmp_path, name):
+    src_params, src_state, cfg = _state_of(name, 12)
+    jparams = JModelParams(*as_numpy(src_params))
+    jstate = type(src_state)(*(type(s)(*(t.numpy() for t in s)) for s in src_state))
+    prefix = str(tmp_path / "j")
+    jckpt.save_training_state(prefix, jparams, jstate, 6, extra={"total_batches": np.asarray(3)})
+    fresh = make_params(seed=99)
+    fresh_state = Optimizer(cfg).init(fresh)
+    _, _, epoch, extra = tckpt.load_training_state(prefix, fresh, fresh_state)
+    assert epoch == 6 and int(extra["total_batches"]) == 3
+    for a, b in zip(tckpt.state_leaves(src_params, src_state),
+                    tckpt.state_leaves(fresh, fresh_state)):
+        assert a.dtype == b.dtype and torch.equal(a, b)

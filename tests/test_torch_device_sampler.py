@@ -250,6 +250,16 @@ def test_iid_multistep_draws_eligible_documents_and_trains():
         exact(tp, state)
 
 
+@pytest.mark.parametrize("weights", [dict(entity_entity_weight=0.5), dict(term_term_weight=0.5)])
+def test_multistep_refuses_composite_objectives(weights):
+    """The sampler draws text-entity batches only; a composite also needs
+    a similarity stream, which the host-fed path zips in."""
+    _, tdc = both_corpora(uneven_corpus(num_docs=60, seed=6))
+    with pytest.raises(ValueError, match="only the text-entity objective"):
+        tds.make_device_sampled_multistep(
+            DESCS["nvsm"], train_config(**weights), tdc, 2, torch.Generator())
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():

@@ -4,7 +4,8 @@
 (importing ``cunvsm_tpu`` imports jax); these tests hold the copies to the
 originals: the config dataclasses and enums, the batches that
 ``TextEntitySource`` yields for one seed, corpus building, the synthetic
-corpora and the MAP metric.
+corpora, the MAP metric, and the similarity streams (``load_similarities``,
+``SimilaritySource``, ``repeating``, ``zip_sources``).
 """
 
 import dataclasses
@@ -18,11 +19,13 @@ import cunvsm_tpu.config as jconfig
 import cunvsm_torch.config as tconfig
 from cunvsm_tpu.data import corpus as jcorpus
 from cunvsm_tpu.data import instances as jinst
+from cunvsm_tpu.data import sources as jsources
 from cunvsm_tpu.data import synth as jsynth
 from cunvsm_tpu.data import text as jtext
 from cunvsm_tpu.query import metrics as jmetrics
 from cunvsm_torch.data import corpus as tcorpus
 from cunvsm_torch.data import instances as tinst
+from cunvsm_torch.data import sources as tsources
 from cunvsm_torch.data import synth as tsynth
 from cunvsm_torch.data import text as ttext
 from cunvsm_torch.io import trec as ttrec
@@ -135,3 +138,43 @@ def test_metrics_and_run_io_match(tmp_path):
     ttrec.write_run(run, path)
     back = ttrec.read_run(path)
     assert {q: [d for d, _ in r] for q, r in back.items()} == {q: [d for d, _ in r] for q, r in run.items()}
+
+
+def test_load_similarities_matches(tmp_path):
+    path = tmp_path / "sims.txt"
+    path.write_text("d1 d2 0.5\n\nd3 unknown 1.0\nd2 d3 2\n  d4 d1 -0.25  \n")
+    idents = {"d1": 0, "d2": 1, "d3": 2, "d4": 3}
+    t = tsources.load_similarities(str(path), idents)
+    j = jsources.load_similarities(str(path), idents)
+    for a, b in zip(t, j):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert t[0].tolist() == [[0, 1], [1, 2], [3, 0]]
+    path.write_text("d1 d2\n")
+    for module in (tsources, jsources):
+        with pytest.raises(ValueError, match="malformed"):
+            module.load_similarities(str(path), idents)
+    path.write_text("")
+    assert tsources.load_similarities(str(path), idents)[0].shape == (0, 2)
+
+
+@pytest.mark.parametrize("drop_remainder", [True, False])
+def test_similarity_streams_match(drop_remainder):
+    rng = np.random.RandomState(4)
+    ids = rng.randint(0, 50, (23, 2)).astype(np.int32)
+    w = rng.rand(23).astype(np.float32)
+    t = tsources.SimilaritySource(ids, w, 5, seed=7, drop_remainder=drop_remainder)
+    j = jsources.SimilaritySource(ids, w, 5, seed=7, drop_remainder=drop_remainder)
+    tb, jb = list(tsources.repeating(t, 3)), list(jsources.repeating(j, 3))
+    assert len(tb) == len(jb) == 3 * (4 if drop_remainder else 5)
+    for a, b in zip(tb, jb):
+        np.testing.assert_array_equal(a.ids, b.ids)
+        np.testing.assert_array_equal(a.weights, b.weights)
+    endless = tsources.repeating(
+        tsources.SimilaritySource(ids, w, 5, seed=7, drop_remainder=drop_remainder))
+    zipped = list(tsources.zip_sources(iter(range(9)), endless))
+    assert [a for a, _ in zipped] == list(range(9))
+    for (_, a), b in zip(zipped, tb):
+        np.testing.assert_array_equal(a.ids, b.ids)
+    with pytest.raises(ValueError):
+        tsources.SimilaritySource(ids, w[:3], 5)

@@ -1,9 +1,12 @@
-"""The port's TEXT_ENTITY objective against the JAX package, float64 on CPU.
+"""The port's objectives against the JAX package, float64 on CPU.
 
-Both packages score the same entity / pool ids on the same inputs; cost,
-similarity probabilities, every SparseGrad field and the transform
-gradients agree to rtol 1e-10 (the two differ only in the order of float64
-sums).
+Both packages score the same entity / pool / shared ids and similarity
+pairs on the same inputs: the factored and the expanded per-instance
+layouts (with and without the entity L2 normalizer and feature weights),
+the rolled pool, batch-shared negatives, both similarity tables and the
+weighted merge.  Cost, similarity probabilities, every SparseGrad field and
+the transform gradients agree to rtol 1e-10 (the two differ only in the
+order of float64 sums).
 """
 
 import jax.numpy as jnp
@@ -12,10 +15,10 @@ import pytest
 import torch
 
 from cunvsm_tpu.models import objectives as jobj
-from cunvsm_torch.config import ModelDesc
+from cunvsm_torch.config import ModelDesc, Nonlinearity
 from cunvsm_torch.models import objectives as tobj
 from tests.torch_parity import (
-    B, DESCS, K, N, both_batches, both_params, numpy_batch, numpy_params, to_np,
+    B, D_E, D_W, DESCS, K, N, both_batches, both_params, numpy_batch, numpy_params, to_np,
     twin,
 )
 
@@ -59,7 +62,7 @@ def test_factored_per_instance_matches_jax(desc_name, uniform):
         uniform_feature_weights=uniform,
     )
     tres = tobj.text_entity_cost_and_grads(
-        tp, tb, torch.from_numpy(ids).long(), desc,
+        tp, tb, torch.from_numpy(ids).long(), desc, factored_entity_grads=True,
         uniform_feature_weights=uniform,
     )
     assert_same_grads(jres, tres)
@@ -117,9 +120,134 @@ def test_nce_instance_weights_match_jax(bias_negative_samples, k):
 
 
 def test_entity_l2_normalizer_is_not_silently_factored():
-    desc = ModelDesc(l2_normalize_entity_reprs=True)
-    _, tp = both_params(numpy_params(1))
-    _, tb = both_batches(numpy_batch(2))
-    ids = torch.zeros((B, K + 1), dtype=torch.long)
-    with pytest.raises(NotImplementedError):
-        tobj.text_entity_cost_and_grads(tp, tb, ids, desc)
+    """Asked for the factored layout with the entity L2 normalizer on, both
+    packages return the expanded one (objectives.py:331 of the JAX package)."""
+    desc = ModelDesc(word_repr_size=D_W, entity_repr_size=D_E, l2_normalize_entity_reprs=True)
+    jp, tp = both_params(numpy_params(1))
+    jb, tb = both_batches(numpy_batch(2))
+    ids = _entity_ids(jb, 3)
+    jres = jobj.text_entity_cost_and_grads(
+        jp, jb, jnp.asarray(ids), twin(desc), factored_entity_grads=True)
+    tres = tobj.text_entity_cost_and_grads(
+        tp, tb, torch.from_numpy(ids).long(), desc, factored_entity_grads=True)
+    assert tres[2].entity[0].indices.shape == (B * (K + 1), 1)
+    assert_same_grads(jres, tres)
+
+
+def _entity_ids(jb, seed):
+    rng = np.random.RandomState(seed)
+    return np.concatenate(
+        [np.asarray(jb.labels)[:, None], rng.randint(0, N, (B, K))], axis=1
+    ).astype(np.int32)
+
+
+EXPANDED_DESCS = dict(
+    DESCS,
+    entity_l2=ModelDesc(word_repr_size=D_W, entity_repr_size=D_E,
+                        nonlinearity=Nonlinearity.TANH, l2_normalize_entity_reprs=True),
+    both_l2_bn=ModelDesc(word_repr_size=D_W, entity_repr_size=D_E, batch_normalization=True,
+                         l2_normalize_phrase_reprs=True, l2_normalize_entity_reprs=True),
+)
+
+
+@pytest.mark.parametrize("desc_name", sorted(EXPANDED_DESCS))
+@pytest.mark.parametrize("uniform", [True, False])
+def test_expanded_per_instance_matches_jax(desc_name, uniform):
+    """The expanded entity layout: one row per (instance, slot), window 1."""
+    desc = EXPANDED_DESCS[desc_name]
+    jp, tp = both_params(numpy_params(21))
+    jb, tb = both_batches(numpy_batch(22, weighted=not uniform))
+    ids = _entity_ids(jb, 23)
+    jres = jobj.text_entity_cost_and_grads(
+        jp, jb, jnp.asarray(ids), twin(desc), uniform_feature_weights=uniform)
+    tres = tobj.text_entity_cost_and_grads(
+        tp, tb, torch.from_numpy(ids).long(), desc, uniform_feature_weights=uniform)
+    assert tres[2].entity[0].grad.shape == (B * (K + 1), D_E)
+    assert_same_grads(jres, tres)
+
+
+@pytest.mark.parametrize("desc_name", sorted(EXPANDED_DESCS))
+def test_text_entity_cost_matches_jax(desc_name):
+    desc = EXPANDED_DESCS[desc_name]
+    jp, tp = both_params(numpy_params(24))
+    jb, tb = both_batches(numpy_batch(25, weighted=True))
+    ids = _entity_ids(jb, 26)
+    jc, jprobs = jobj.text_entity_cost(jp, jb, jnp.asarray(ids), twin(desc))
+    tc, tprobs = tobj.text_entity_cost(tp, tb, torch.from_numpy(ids).long(), desc)
+    assert_close(jc, tc)
+    assert_close(jprobs, tprobs)
+
+
+@pytest.mark.parametrize("desc_name", sorted(DESCS))
+@pytest.mark.parametrize("uniform", [True, False])
+def test_shared_negatives_match_jax(desc_name, uniform):
+    desc = DESCS[desc_name]
+    jp, tp = both_params(numpy_params(27))
+    jb, tb = both_batches(numpy_batch(28, weighted=not uniform))
+    neg = np.random.RandomState(29).randint(0, N, K).astype(np.int32)
+    jres = jobj.text_entity_cost_and_grads_shared(
+        jp, jb, jnp.asarray(neg), twin(desc), uniform_feature_weights=uniform)
+    tres = tobj.text_entity_cost_and_grads_shared(
+        tp, tb, torch.from_numpy(neg).long(), desc, uniform_feature_weights=uniform)
+    assert_same_grads(jres, tres)
+
+
+def test_shared_negatives_refuse_the_entity_l2_normalizer():
+    desc = EXPANDED_DESCS["entity_l2"]
+    jp, tp = both_params(numpy_params(1))
+    jb, tb = both_batches(numpy_batch(2))
+    with pytest.raises(ValueError, match="l2_normalize_entity_reprs"):
+        jobj.text_entity_cost_and_grads_shared(jp, jb, jnp.zeros(K, jnp.int32), twin(desc))
+    with pytest.raises(ValueError, match="l2_normalize_entity_reprs"):
+        tobj.text_entity_cost_and_grads_shared(tp, tb, torch.zeros(K, dtype=torch.long), desc)
+
+
+def _similarity_batches(seed, rows):
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, rows, (B, 2)).astype(np.int32)
+    ids[0, 1] = ids[0, 0]  # a pair of one object with itself
+    w = rng.uniform(0.5, 1.5, B)
+    return (jobj.SimilarityBatch(jnp.asarray(ids), jnp.asarray(w)),
+            tobj.SimilarityBatch(torch.from_numpy(ids).long(), torch.from_numpy(w)))
+
+
+@pytest.mark.parametrize("table", ["word", "entity"])
+@pytest.mark.parametrize("desc_name", ["nvsm", "unclipped"])
+def test_similarity_matches_jax(table, desc_name):
+    desc = DESCS[desc_name]
+    np_params = numpy_params(30)
+    arr = np_params.word_reprs if table == "word" else np_params.entity_reprs
+    jb, tb = _similarity_batches(31, arr.shape[0])
+    jc, jprobs, jd = jobj.similarity_cost_and_grads(jnp.asarray(arr), jb, twin(desc))
+    tc, tprobs, td = tobj.similarity_cost_and_grads(torch.from_numpy(arr), tb, desc)
+    assert_close(jc, tc)
+    assert_close(jprobs, tprobs)
+    assert_close(jd.grad, td.grad)
+    np.testing.assert_array_equal(to_np(jd.indices), to_np(td.indices))
+    assert jd.weights is None and td.weights is None
+    jl = jobj.similarity_loss(jnp.asarray(arr)[jb.ids], jb.weights, twin(desc), 7.0)
+    tl = tobj.similarity_loss(torch.from_numpy(arr)[tb.ids], tb.weights, desc, 7.0)
+    for a, b in zip(jl, tl):
+        assert_close(a, b)
+
+
+def test_merge_ascent_grads_matches_jax():
+    """Unequal weights; one constituent has no transform gradients and
+    descriptors of one table only, as a similarity objective has."""
+    jp, tp = both_params(numpy_params(32))
+    jb, tb = both_batches(numpy_batch(33, weighted=True))
+    ids = _entity_ids(jb, 34)
+    desc = DESCS["nvsm"]
+    _, _, jte = jobj.text_entity_cost_and_grads(jp, jb, jnp.asarray(ids), twin(desc))
+    _, _, tte = tobj.text_entity_cost_and_grads(tp, tb, torch.from_numpy(ids).long(), desc)
+    jsb, tsb = _similarity_batches(35, N)
+    _, _, jsim = jobj.similarity_cost_and_grads(jp.entity_reprs, jsb, twin(desc))
+    _, _, tsim = tobj.similarity_cost_and_grads(tp.entity_reprs, tsb, desc)
+    jm = jobj.merge_ascent_grads(((jte, 0.7), (jobj.AscentGrads((), (jsim,), None, None), 0.2)))
+    tm = tobj.merge_ascent_grads(((tte, 0.7), (tobj.AscentGrads((), (tsim,), None, None), 0.2)))
+    assert len(tm.word) == 1 and len(tm.entity) == 2
+    assert_same_grads((0.0, 0.0, jm), (0.0, 0.0, tm))
+    np.testing.assert_allclose(to_np(tm.transform_w), to_np(tte.transform_w) * 0.7 / 0.9, rtol=1e-15)
+    scaled = tobj.scale_sparse(tsim, 0.5)
+    np.testing.assert_array_equal(scaled.grad.numpy(), tsim.grad.numpy() * 0.5)
+    assert scaled.indices is tsim.indices

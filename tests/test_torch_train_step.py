@@ -1,14 +1,19 @@
-"""The port's full_adam training step against the JAX package.
+"""The port's training step against the JAX package.
 
 Three steps of the JAX package (objective + Optimizer.apply, fed fixed
 ids) against three steps of the port's ``make_train_step`` with the same
 ids injected: all four tables, m, v and t agree to rtol 1e-9 / atol 1e-12
-in float64 (the segment sums add in another order).  Under bfloat16
-streams the two frameworks round the window sums at different places, so
-one step is held to rtol 2e-2 on the cost and 2e-2 of the max-abs on the
-dense accumulations.
+in float64 (the segment sums add in another order).  Every optimizer runs
+three steps of both packages' ``make_train_step`` from a non-zero state on
+the layout its configuration resolves to (rolled pool, factored or
+expanded per-instance), as do the entity L2 normalizer and batch-shared
+negatives, at rtol 1e-10 / atol 1e-12.  Under bfloat16 streams the two
+frameworks round the window sums at different places, so one step is held
+to rtol 2e-2 on the cost and 2e-2 of the max-abs on the dense
+accumulations.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,12 +22,20 @@ import torch
 from cunvsm_tpu.models import objectives as jobj
 from cunvsm_tpu.optim import updates as jupd
 from cunvsm_tpu.train import step as jstep
-from cunvsm_torch.config import AdamConfig, AdamMode, UpdateMethod
+from cunvsm_torch.config import (
+    UPDATE_METHOD_NAMES,
+    AdamConfig,
+    AdamMode,
+    ModelDesc,
+    Nonlinearity,
+    UpdateMethod,
+)
 from cunvsm_torch.optim import updates as tupd
 from cunvsm_torch.train import step as tstep
 from tests.torch_parity import (
-    B, DESCS, K, N, both_batches, both_params, jax_train_step, numpy_batch, numpy_params,
-    to_np, train_config, twin,
+    B, D_E, D_W, DESCS, K, N, assert_card_steps_match_cpu, assert_same_training, both_batches,
+    both_params, jax_draws, jax_train_step, numpy_batch, numpy_params, optimizer_config,
+    run_both_steps, to_np, train_config, twin,
 )
 
 torch.set_num_threads(1)
@@ -93,7 +106,8 @@ def test_bf16_streams_one_step_near_jax(pooled):
         jcost, _, jg = jobj.text_entity_cost_and_grads(
             jp, jb, jnp.asarray(eids), twin(desc), factored_entity_grads=True, **kw)
         tcost, _, tg = tstep.obj.text_entity_cost_and_grads(
-            tp, tb, torch.cat([tb.labels[:, None], tids], 1), desc, **tkw)
+            tp, tb, torch.cat([tb.labels[:, None], tids], 1), desc,
+            factored_entity_grads=True, **tkw)
     assert tcost.dtype == torch.float32
     np.testing.assert_allclose(float(tcost), float(jcost), rtol=2e-2)
     for rows, jd, td in ((64, jg.word, tg.word), (N, jg.entity, tg.entity)):
@@ -141,16 +155,114 @@ def test_opt_state_round_trips_through_numpy():
             np.testing.assert_array_equal(b, np.asarray(j))
 
 
-@pytest.mark.parametrize("method,mode", [
-    (UpdateMethod.SGD, AdamMode.DENSE_UPDATE_DENSE_VARIANCE),
-    (UpdateMethod.ADAGRAD, AdamMode.DENSE_UPDATE_DENSE_VARIANCE),
-    (UpdateMethod.ADAM, AdamMode.SPARSE),
-    (UpdateMethod.ADAM, AdamMode.DENSE_UPDATE),
+OPTIMIZERS = sorted(UPDATE_METHOD_NAMES)
+
+
+@pytest.mark.parametrize("name", OPTIMIZERS)
+def test_every_optimizer_is_accepted(name):
+    """``Optimizer(cfg)`` takes every method and mode; its state has the
+    JAX package's types, shapes, dtypes and values."""
+    cfg = optimizer_config(name)
+    jp, tp = both_params(numpy_params(17))
+    jstate = jupd.Optimizer(twin(cfg)).init(jp)
+    tstate = tupd.Optimizer(cfg).init(tp)
+    assert [type(s).__name__ for s in tstate] == [type(s).__name__ for s in jstate]
+    for js, ts in zip(jstate, tstate):
+        assert ts._fields == js._fields
+        for j, t in zip(js, ts):
+            assert to_np(t).dtype == np.asarray(j).dtype
+            np.testing.assert_array_equal(to_np(t), np.asarray(j))
+
+
+def _batches(seed, weighted, n=3):
+    return [both_batches(numpy_batch(seed + i, weighted=weighted)) for i in range(n)]
+
+
+@pytest.mark.parametrize("desc_name", ["nvsm", "lse"])
+@pytest.mark.parametrize("name", OPTIMIZERS)
+def test_every_optimizer_three_steps_match_jax(name, desc_name):
+    """SGD takes the rolled pool (nvsm) or the factored per-instance path
+    (lse); full_adam the factored per-instance path; Adagrad and sparse or
+    dense-update Adam the expanded per-instance path."""
+    desc = DESCS[desc_name]
+    pool = 8 if name == "sgd" and desc_name == "nvsm" else 0
+    cfg = optimizer_config(name, negative_pool_size=pool,
+                           uniform_feature_weights=desc_name == "nvsm")
+    assert tstep.resolve_negative_sampling(cfg, desc, B, N)[0] == pool
+    result = run_both_steps(desc, cfg, _batches(40, desc_name == "lse"), numpy_params(41),
+                            state_seed=42)
+    assert_same_training(result, rtol=1e-10, atol=1e-12)
+
+
+ENTITY_L2 = ModelDesc(word_repr_size=D_W, entity_repr_size=D_E, nonlinearity=Nonlinearity.TANH,
+                      batch_normalization=True, l2_normalize_entity_reprs=True)
+
+
+@pytest.mark.parametrize("name", ["full_adam", "sgd", "sparse_adam"])
+def test_entity_l2_normalizer_steps_match_jax(name):
+    """The normalizer forces the expanded per-instance layout, even for an
+    accumulate-only optimizer and with the pool on auto."""
+    cfg = optimizer_config(name, negative_pool_size=-1)
+    result = run_both_steps(ENTITY_L2, cfg, _batches(43, True), numpy_params(44), state_seed=45)
+    assert_same_training(result, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("name", ["full_adam", "sgd"])
+@pytest.mark.parametrize("desc_name", ["nvsm", "lse"])
+def test_shared_negatives_steps_match_jax(name, desc_name):
+    cfg = optimizer_config(name, shared_negatives=True,
+                           uniform_feature_weights=desc_name == "nvsm")
+    result = run_both_steps(DESCS[desc_name], cfg, _batches(46, desc_name == "lse"),
+                            numpy_params(47), state_seed=48)
+    assert_same_training(result, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("overrides,desc,match", [
+    (dict(shared_negatives=True, negative_pool_size=8), DESCS["nvsm"], "mutually exclusive"),
+    (dict(shared_negatives=True, update_method=UpdateMethod.ADAGRAD), DESCS["nvsm"],
+     "accumulate-only"),
+    (dict(negative_pool_size=8, adam=AdamConfig(mode=AdamMode.SPARSE)), DESCS["nvsm"],
+     "accumulate-only"),
+    (dict(shared_negatives=True), ENTITY_L2, "l2_normalize_entity_reprs"),
 ])
-def test_unported_optimizers_raise(method, mode):
-    cfg = train_config(update_method=method, adam=AdamConfig(mode=mode))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tupd.Optimizer(cfg)
+def test_both_packages_refuse_the_same_negative_layouts(overrides, desc, match):
+    cfg = train_config(**overrides)
+    jp, tp = both_params(numpy_params(50))
+    jb, tb = _batches(49, False, n=1)[0]
+    with pytest.raises(ValueError, match=match):
+        tstep.make_train_step(desc, cfg, "cpu", torch.Generator().manual_seed(0))(
+            tp, tupd.Optimizer(cfg).init(tp), tb)
+    with pytest.raises(ValueError, match=match):
+        jstep.make_train_step(twin(desc), twin(cfg), jit=False)(
+            jp, jupd.Optimizer(twin(cfg)).init(jp), jb, jax.random.PRNGKey(0))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["entity_l2", "shared"])
+def test_full_adam_layouts_on_card_match_cpu(cuda, layout):
+    """The expanded layout under the entity L2 normalizer and the
+    batch-shared GEMM layout, with the sweep kernel on the card."""
+    if layout == "entity_l2":
+        desc, cfg = ENTITY_L2, optimizer_config("full_adam")
+    else:
+        desc, cfg = DESCS["lse"], optimizer_config("full_adam", shared_negatives=True)
+    batches = _batches(51, True)
+    ids = [jax_draws(twin(cfg), twin(desc), jax.random.PRNGKey(i), jb.labels)
+           for i, (jb, _) in enumerate(batches)]
+    assert_card_steps_match_cpu(cuda, desc, cfg, [tb for _, tb in batches], ids,
+                                numpy_params(52))
+
+
+def test_reference_rng_names_its_roadmap_item():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 5"):
+        tstep.make_train_step(DESCS["nvsm"], train_config(reference_rng=True), "cpu", None)
 
 
 def test_sampled_step_draws_in_range_and_trains():
@@ -167,3 +279,11 @@ def test_sampled_step_draws_in_range_and_trains():
         for _ in range(2):
             assert torch.isfinite(step(tp, state, tb))
         assert not torch.equal(before, tp.entity_reprs)
+
+
+def test_accum_dtype_names_its_roadmap_item():
+    """Only full_adam reads accum_dtype; its bfloat16 accumulation is not
+    ported, the other optimizers ignore the field as the JAX package does."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7"):
+        tupd.Optimizer(optimizer_config("full_adam", accum_dtype="bfloat16"))
+    tupd.Optimizer(optimizer_config("sgd", accum_dtype="bfloat16"))

@@ -2,7 +2,10 @@
 
 * 2 + 2 resumed epochs equal an uninterrupted 4, bit for bit, on the
   host-fed and on the on-device path (the cases of
-  tests/test_train_integration.py:142-211, with full_adam);
+  tests/test_train_integration.py:142-211), with full_adam and with every
+  other optimizer, and for both composites fed by a similarity source
+  (tests/test_train_integration.py:248): the similarity stream is zipped in
+  lockstep and fast-forwarded past the batches trained;
 * an output prefix writes ``_meta`` (the JAX package's bytes for the same
   corpus), the sidecars, one ``.hdf5`` per dumped epoch (read back equal to
   the returned tables) and the resume file; the callback sees its epoch's
@@ -21,6 +24,7 @@ import pytest
 import torch
 
 from cunvsm_torch.config import (
+    UPDATE_METHOD_NAMES,
     AdamConfig,
     AdamMode,
     DataConfig,
@@ -30,7 +34,7 @@ from cunvsm_torch.config import (
 )
 from cunvsm_torch.data.corpus import build_corpus
 from cunvsm_torch.data.instances import FeatureWeighting, TextEntitySource
-from cunvsm_torch.data.sources import Prefetcher
+from cunvsm_torch.data.sources import Prefetcher, SimilaritySource
 from cunvsm_torch.io import checkpoint as tckpt
 from cunvsm_torch.train.trainer import derived_seed, train_model
 from tests.test_torch_slice import synthetic_corpus
@@ -50,11 +54,12 @@ def small_corpus(docs_per_topic=3, doc_len=20):
 
 
 def cfg(n, batch=8, **kw):
-    return TrainConfig(
-        num_epochs=n, batch_size=batch, window_size=4, num_random_entities=2,
-        learning_rate=0.01, seed=3, update_method=UpdateMethod.ADAM,
-        adam=AdamConfig(mode=AdamMode.DENSE_UPDATE_DENSE_VARIANCE), **kw,
-    )
+    return TrainConfig(**{
+        **dict(num_epochs=n, batch_size=batch, window_size=4, num_random_entities=2,
+               learning_rate=0.01, seed=3, update_method=UpdateMethod.ADAM,
+               adam=AdamConfig(mode=AdamMode.DENSE_UPDATE_DENSE_VARIANCE)),
+        **kw,
+    })
 
 
 def assert_same_state(a, b):
@@ -213,6 +218,8 @@ def test_derived_seeds_differ_by_stream_and_counter():
     (dict(stratify_data_groups=2), {}, "requires on_device_sampling"),
     (dict(on_device_sampling=True, shard_corpus=True), {}, "requires a mesh"),
     (dict(), dict(entity_entity_weight=0.5), "similarity source"),
+    (dict(on_device_sampling=True, similarity_source=object()), dict(term_term_weight=0.5),
+     "only the text-entity objective"),
 ])
 def test_jax_guards_raise_value_error(kwargs, config, match):
     with pytest.raises(ValueError, match=match):
@@ -220,7 +227,6 @@ def test_jax_guards_raise_value_error(kwargs, config, match):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("similarity_source", object(), "item 4"),
     ("mesh", object(), "item 8"),
     ("shard_corpus", True, "item 8"),
     ("stratify_data_groups", 2, "item 8"),
@@ -234,3 +240,80 @@ def test_unported_options_raise(option, value, item):
         kwargs.update(on_device_sampling=True, mesh=None if option != "shard_corpus" else object())
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
         train_model(DESC, cfg(1), small_corpus(), CPU, **kwargs)
+
+
+def optimizer_cfg(name, n):
+    method, mode = UPDATE_METHOD_NAMES[name]
+    return cfg(n, learning_rate=0.05, update_method=method,
+               adam=AdamConfig(mode=mode) if mode else AdamConfig())
+
+
+@pytest.mark.parametrize("path", ["host_fed", "on_device"])
+@pytest.mark.parametrize("name", ["adagrad", "dense_adam", "sgd", "sparse_adam"])
+def test_every_optimizer_resumes_exactly(tmp_path, name, path):
+    """The multistep, the resume file (the JAX leaf order; SGD has no
+    state leaves) and the reseeds work unchanged for every optimizer."""
+    corpus = small_corpus()
+    kw = dict(on_device_sampling=True, steps_per_call=2) if path == "on_device" else {}
+    straight = train_model(DESC, optimizer_cfg(name, 4), corpus, CPU, **kw)
+    prefix = str(tmp_path / "m")
+    train_model(DESC, optimizer_cfg(name, 2), corpus, CPU, output_prefix=prefix, **kw)
+    resumed = train_model(DESC, optimizer_cfg(name, 4), corpus, CPU, output_prefix=prefix,
+                          resume=True, **kw)
+    assert all(np.isfinite(straight.epoch_costs))
+    assert straight.epoch_costs[2:] == resumed.epoch_costs
+    assert_same_state(straight, resumed)
+    with np.load(prefix + "_resume.npz") as data:
+        leaves = len([k for k in data.files if k.startswith("leaf_")])
+    assert leaves == len(tckpt.state_leaves(resumed.params, resumed.opt_state))
+    assert leaves == {"sgd": 4, "adagrad": 8, "sparse_adam": 15, "dense_adam": 15}[name]
+
+
+def similarity_source(corpus, table, seed=9):
+    rng = np.random.RandomState(seed)
+    rows = corpus.num_docs if table == "entity" else corpus.vocab.size
+    ids = rng.randint(0, rows, (20, 2)).astype(np.int32)
+    return SimilaritySource(ids, rng.uniform(0.5, 1.5, 20).astype(np.float32), batch_size=8,
+                            seed=seed)
+
+
+COMPOSITE_WEIGHTS = {
+    "entity": dict(text_entity_weight=0.7, entity_entity_weight=0.3),
+    "word": dict(text_entity_weight=0.6, term_term_weight=0.4),
+}
+
+
+@pytest.mark.parametrize("table", ["entity", "word"])
+def test_composite_resume_equals_uninterrupted(tmp_path, table):
+    """The similarity stream (20 pairs, 2 batches per pass, so it wraps
+    within an epoch) is zipped with the text batches; a resumed run
+    fast-forwards it past the batches already trained and so equals an
+    uninterrupted one bit for bit."""
+    corpus = small_corpus()
+    kw = COMPOSITE_WEIGHTS[table]
+    straight = train_model(DESC, cfg(4, **kw), corpus, CPU,
+                           similarity_source=similarity_source(corpus, table))
+    prefix = str(tmp_path / "m")
+    train_model(DESC, cfg(2, **kw), corpus, CPU, output_prefix=prefix,
+                similarity_source=similarity_source(corpus, table))
+    resumed = train_model(DESC, cfg(4, **kw), corpus, CPU, output_prefix=prefix, resume=True,
+                          similarity_source=similarity_source(corpus, table))
+    assert all(np.isfinite(straight.epoch_costs))
+    assert straight.epoch_costs[2:] == resumed.epoch_costs
+    assert_same_state(straight, resumed)
+    # Without the fast-forward the resumed run would see the stream's
+    # first batches again and train other tables.
+    other = train_model(DESC, cfg(4, **kw), corpus, CPU,
+                        similarity_source=similarity_source(corpus, table, seed=10))
+    assert not torch.equal(other.params.entity_reprs, straight.params.entity_reprs)
+
+
+def test_composite_trains_with_steps_per_call_and_logs_the_layout(caplog):
+    corpus = small_corpus()
+    with caplog.at_level(logging.INFO, logger="cunvsm_torch.train.trainer"):
+        result = train_model(DESC, cfg(2, **COMPOSITE_WEIGHTS["word"]), corpus, CPU,
+                             similarity_source=similarity_source(corpus, "word"),
+                             steps_per_call=3)
+    assert all(np.isfinite(result.epoch_costs))
+    assert result.steps == 2 * TextEntitySource(corpus, 8).batches_per_epoch()
+    assert "Negative sampling: per-instance (k=2)" in caplog.text

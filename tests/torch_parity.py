@@ -22,6 +22,7 @@ from cunvsm_torch.config import (
     AdamMode,
     ModelDesc,
     Nonlinearity,
+    UPDATE_METHOD_NAMES,
     TrainConfig,
     UpdateMethod,
 )
@@ -57,6 +58,14 @@ def train_config(**overrides) -> TrainConfig:
     )
     kw.update(overrides)
     return TrainConfig(**kw)
+
+
+def optimizer_config(name, **overrides) -> TrainConfig:
+    """``train_config`` with the optimizer of a CLI spelling (sgd, adagrad,
+    sparse_adam, dense_adam, full_adam; main.cu:479-485)."""
+    method, mode = UPDATE_METHOD_NAMES[name]
+    return train_config(update_method=method, adam=AdamConfig(mode=mode) if mode else AdamConfig(),
+                        **overrides)
 
 
 def twin(obj):
@@ -141,3 +150,118 @@ def jax_train_step(jparams, jstate, jbatch, ids, pooled, desc, cfg, stride):
         jparams, jstate, grads, jcfg.resolved_learning_rate(), lam
     )
     return jparams, jstate, cost
+
+
+def jax_draws(jcfg, jdesc, key, labels, num_entities=N):
+    """The negative ids that the JAX step draws from ``key``, in the form
+    the port's step takes as ``negative_ids``."""
+    k = jcfg.num_random_entities
+    pool, _ = jstep.resolve_negative_sampling(jcfg, jdesc, labels.shape[0], num_entities)
+    if pool:
+        ids = jobj.sample_negative_pool(key, num_entities, pool)
+    elif jcfg.shared_negatives:
+        ids = jobj.sample_shared_negative_entities(key, num_entities, k)
+    else:
+        ids = jobj.sample_negative_entities(key, labels, num_entities, k)[:, 1:]
+    return torch.from_numpy(np.array(ids)).long()
+
+
+def nonzero_state(jstate, seed):
+    """A JAX optimizer state of the same kind and shapes with every float
+    leaf drawn from U(0.01, 0.5) (positive, as accumulators and variances
+    are) and every step counter 5."""
+    rng = np.random.RandomState(seed)
+    return jupd.OptState(*(
+        type(s)(*(
+            jnp.asarray(rng.uniform(0.01, 0.5, x.shape))
+            if jnp.issubdtype(x.dtype, jnp.floating) else jnp.full(x.shape, 5, x.dtype)
+            for x in s
+        ))
+        for s in jstate
+    ))
+
+
+def run_both_steps(desc, cfg, batches, np_params, kind=None, state_seed=None):
+    """Steps of the JAX package's ``make_train_step`` (a key per step) and
+    of the port's (the same draws injected), from the same parameters.
+    ``batches`` holds (jax batch, port batch) pairs; for a composite or
+    similarity kind those are the kind's batches.  With ``state_seed``
+    every float state leaf starts drawn positive and t at 5.  Returns
+    (jax params, jax state, port params, port state, jax costs, port
+    costs)."""
+    import jax
+
+    from cunvsm_torch.optim import updates as tupd
+    from cunvsm_torch.train import step as tstep
+
+    jdesc, jcfg = twin(desc), twin(cfg)
+    tkind = None if kind is None else tstep.ObjectiveKind(kind.value)
+    jparams, tparams = both_params(np_params)
+    jstate = jupd.Optimizer(jcfg).init(jparams)
+    if state_seed is not None:
+        jstate = nonzero_state(jstate, state_seed)
+    tstate = tupd.opt_state_from_numpy(jstate)
+    jrun = jstep.make_train_step(jdesc, jcfg, kind, jit=False)
+    trun = tstep.make_train_step(desc, cfg, "cpu", None, kind=tkind)
+    te_kind = (kind or jstep.objective_kind_from_config(jcfg)) not in (
+        jstep.ObjectiveKind.ENTITY_ENTITY, jstep.ObjectiveKind.TERM_TERM)
+    jcosts, tcosts = [], []
+    for i, (jb, tb) in enumerate(batches):
+        key = jax.random.PRNGKey(100 + i)
+        ids = None
+        if te_kind:
+            jte = jb if hasattr(jb, "_fields") else jb[0]
+            ids = jax_draws(jcfg, jdesc, key, jte.labels)
+        jparams, jstate, jc = jrun(jparams, jstate, jb, key)
+        jcosts.append(float(jc))
+        tcosts.append(float(trun(tparams, tstate, tb, negative_ids=ids)))
+    return jparams, jstate, tparams, tstate, jcosts, tcosts
+
+
+def batch_to(batch, device, dtype):
+    """A port batch, or a composite's pair of batches, on ``device`` with
+    its float tensors in ``dtype``."""
+    if not hasattr(batch, "_fields"):
+        return tuple(batch_to(b, device, dtype) for b in batch)
+    return type(batch)(*(
+        t.to(device, dtype) if t.dtype.is_floating_point else t.to(device) for t in batch
+    ))
+
+
+def assert_card_steps_match_cpu(card, desc, cfg, port_batches, ids, np_params):
+    """Three steps of the port's ``make_train_step`` in float32 on the card
+    (the kernels) against the same steps in float64 on the CPU (the plain
+    versions), the same ``ids`` injected: costs to rtol 1e-5, tables to
+    atol 1e-4 (float32 rounding over three steps; duplicate ids add in no
+    fixed order on the card)."""
+    from cunvsm_torch.optim import updates as tupd
+    from cunvsm_torch.train import step as tstep
+
+    results = []
+    for device, dtype in ((card, torch.float32), (torch.device("cpu"), torch.float64)):
+        params = params_from_numpy(np_params, device, dtype)
+        state = tupd.Optimizer(cfg).init(params)
+        step = tstep.make_train_step(desc, cfg, device, None)
+        costs = [float(step(params, state, batch_to(b, device, dtype), negative_ids=i.to(device)))
+                 for b, i in zip(port_batches, ids)]
+        results.append((np.array(costs), [to_np(t).astype(np.float64) for t in params]))
+    (gc, gp), (cc, cp) = results
+    np.testing.assert_allclose(gc, cc, rtol=1e-5)
+    for g, c, before in zip(gp, cp, np_params):
+        assert not np.array_equal(c, before)
+        np.testing.assert_allclose(g, c, rtol=0, atol=1e-4)
+
+
+def assert_same_training(result, rtol, atol):
+    """Costs, tables and every state leaf of ``run_both_steps`` agree."""
+    jparams, jstate, tparams, tstate, jcosts, tcosts = result
+    np.testing.assert_allclose(tcosts, jcosts, rtol=rtol)
+    for j, t in zip(jparams, tparams):
+        np.testing.assert_allclose(to_np(t), np.asarray(j), rtol=rtol, atol=atol)
+    assert [s._fields for s in jstate] == [s._fields for s in tstate]
+    for js, ts in zip(jstate, tstate):
+        for j, t in zip(js, ts):
+            if np.asarray(j).dtype.kind == "i":
+                np.testing.assert_array_equal(to_np(t), np.asarray(j))
+            else:
+                np.testing.assert_allclose(to_np(t), np.asarray(j), rtol=rtol, atol=atol)
