@@ -51,7 +51,24 @@ build/cuda), and runs the port's main path:
      its negative layout, and asserts its launches per step: the sweep 2
      under full_adam and 0 otherwise, the cast 1 where the factored,
      pooled or shared path runs under bfloat16 streams and 0 on the
-     expanded per-instance path.
+     expanded per-instance path;
+  F  the command-line entry points, in process: F1 cunvsm-torch-train
+     (``cunvsm_torch.cli.train.main``) on phase B's corpus saved as a
+     packed .npz, with the canonical flags, on-device sampling in calls of
+     K = 13, 2 epochs and the initial cost (which must exceed the last
+     epoch's), its files read back by the port, 2 sweeps and 1 cast per
+     trained step with the initial-cost pass counted apart; F2
+     cunvsm-torch-query (``cunvsm_torch.cli.query.main``) on F1's model
+     for 100 topics made from --seed out of the vocabulary: top-1000 with
+     float32 and with bfloat16 scores (at least 95% of the top-10
+     positions equal; the bfloat16 engine's float32 scores within 1e-5 of
+     float32 sums of its bfloat16 products), then a qrels file of 50
+     documents per topic as --top_k, its scores held to
+     ``QueryEngine.score_documents``; F3
+     --reference_rng through cunvsm-torch-train on the three-topic corpus
+     written as TRECTEXT, on the card and on the CPU (the same host
+     stream: tables within 1e-5 relative and 1e-4 absolute), and the
+     card's model ranked through cunvsm-torch-query at MAP > 0.8.
 
 Without a CUDA device it exits with an error before printing any result.
 The last line of its output is one JSON object with "ok" and the device;
@@ -66,8 +83,10 @@ and the time of one PyTorch call computing the same function
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import logging
 import os
 import shutil
 import statistics
@@ -78,6 +97,8 @@ import time
 import numpy as np
 import torch
 
+from cunvsm_torch.cli import query as query_cli
+from cunvsm_torch.cli import train as train_cli
 from cunvsm_torch.config import (
     AdamConfig,
     AdamMode,
@@ -92,12 +113,15 @@ from cunvsm_torch.data.corpus import build_corpus
 from cunvsm_torch.data.instances import TextEntitySource
 from cunvsm_torch.data.sources import SimilaritySource, load_similarities
 from cunvsm_torch.data.synth import zipf_corpus
+from cunvsm_torch.data.text import tokenize
 from cunvsm_torch.io import checkpoint
+from cunvsm_torch.io.trec import read_run
 from cunvsm_torch.models.objectives import SimilarityBatch, TextEntityBatch
 from cunvsm_torch.models.params import init_params, params_from_numpy, params_to_numpy
 from cunvsm_torch.ops import adam_sweep, cast, cuda_build
 from cunvsm_torch.optim.updates import Optimizer
-from cunvsm_torch.query.engine import QueryEngine, _rank_kernel
+from cunvsm_torch.query.engine import (QueryEngine, _project_queries, _rank_kernel,
+                                       load_query_engine)
 from cunvsm_torch.query.metrics import evaluate_run
 from cunvsm_torch.train.step import (
     ObjectiveKind,
@@ -361,7 +385,8 @@ def phase_b0(device):
     desc, cfg = canonical_desc_cfg(sizes)
     cfg = TrainConfig(**{**cfg.__dict__, "stream_dtype": "float32",
                          "window_sum_dtype": "float32", "negative_pool_size": 8})
-    init = init_params(torch.Generator().manual_seed(0), 64, 48, desc, dtype=torch.float64)
+    init = init_params(torch.Generator().manual_seed(0), 64, 48, desc, dtype=torch.float64,
+                       device=torch.device("cpu"))
     runs = []
     for dev, dtype in ((device, torch.float32), (torch.device("cpu"), torch.float64)):
         params = params_from_numpy(params_to_numpy(init), dev, dtype)
@@ -534,15 +559,17 @@ def reset_launches():
     cast.cast_table.launches = 0
 
 
+def launch_counts() -> dict:
+    return {"sweep": adam_sweep.fused_adam_dense_sweep.launches,
+            "cast": cast.cast_table.launches}
+
+
 def read_launches(steps, phase, per_step=None):
     """The launch counts since ``reset_launches``; raises unless the path
     launched each kernel ``per_step`` times per step (by default the sweep
     twice and the cast once)."""
     per_step = per_step or {"sweep": 2, "cast": 1}
-    launches = {
-        "sweep": adam_sweep.fused_adam_dense_sweep.launches,
-        "cast": cast.cast_table.launches,
-    }
+    launches = launch_counts()
     if launches != {key: n * steps for key, n in per_step.items()}:
         raise AssertionError(f"{phase}: kernel launches {launches} for {steps} steps, "
                              f"expected {per_step} per step")
@@ -659,9 +686,9 @@ def phase_d2(device, sizes, corpus):
         for name in ("_1.hdf5", "_2.hdf5", "_meta", "_resume.npz"):
             if not os.path.exists(prefix + name):
                 raise AssertionError(f"phase D2 wrote no {prefix + name}")
-        loaded = checkpoint.load_model_hdf5(prefix, 2)
+        loaded = checkpoint.load_model_hdf5(prefix, 2, device)
         for name, a, b in zip(loaded._fields, first.params, loaded):
-            if not torch.equal(a.cpu(), b):
+            if not torch.equal(a, b):
                 raise AssertionError(f"{name} read back from _2.hdf5 differs from the trained table")
         t0 = time.perf_counter()
         resumed = train_model(desc, dataclasses.replace(cfg, num_epochs=3), corpus, device,
@@ -750,7 +777,8 @@ def phase_e0(device):
                                      negative_pool_size=8 if pooled else -1)
         kind = objective_kind_from_config(cfg)
         pool, _ = resolve_negative_sampling(cfg, desc, 32, 48)
-        init = init_params(torch.Generator().manual_seed(0), 64, 48, desc, dtype=torch.float64)
+        init = init_params(torch.Generator().manual_seed(0), 64, 48, desc, dtype=torch.float64,
+                           device=torch.device("cpu"))
         runs = []
         for dev, dtype in ((device, torch.float32), (torch.device("cpu"), torch.float64)):
             params = params_from_numpy(params_to_numpy(init), dev, dtype)
@@ -882,6 +910,288 @@ def phase_e(device, sizes, corpus, seed):
     return total
 
 
+class LogRecords(logging.Handler):
+    """Every log record of a command, and the kernel launches counted when
+    the trainer logs its initial cost (the end of that pass)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records, self.at_initial_cost = [], None
+
+    def emit(self, record):
+        if record.msg.startswith("Initial cost"):
+            self.at_initial_cost = launch_counts()
+        self.records.append(record)
+
+    def args(self, msg_prefix):
+        """The arguments of the records whose format starts so."""
+        return [r.args for r in self.records if r.msg.startswith(msg_prefix)]
+
+
+@contextlib.contextmanager
+def captured_logs():
+    handler, root = LogRecords(), logging.getLogger()
+    level = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    try:
+        yield handler
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+
+
+def run_command(main_fn, argv, what):
+    """``main_fn(argv)`` in process with its log records kept; raises
+    unless it returns 0.  Returns (records, wall seconds)."""
+    t0 = time.perf_counter()
+    with captured_logs() as logs:
+        rc = main_fn(argv)
+    if rc != 0:
+        raise AssertionError(f"{what} exited with {rc}")
+    return logs, time.perf_counter() - t0
+
+
+def epoch_records(logs):
+    """(cost, steps, seconds) of every epoch the trainer logged."""
+    return [(a[2], a[3], a[4]) for a in logs.args("Epoch %d")]
+
+
+def canonical_flags(sizes):
+    """cunvsm-torch-train's flags of the canonical configuration."""
+    return [
+        "--update_method", "full_adam", "--nonlinearity", "hard_tanh", "--batch_normalization",
+        "--word_repr_size", str(sizes["word_dim"]), "--entity_repr_size", str(sizes["entity_dim"]),
+        "--batch_size", str(sizes["batch"]), "--window_size", str(sizes["window"]),
+        "--num_random_entities", str(sizes["negatives"]), "--learning_rate", "1e-3",
+        "--regularization_lambda", "0.01", "--stream_dtype", "bfloat16",
+        "--window_sum_dtype", "bfloat16",
+    ]
+
+
+def phase_f1(device, sizes, corpus, seed, tmp):
+    """cunvsm-torch-train at full width: phase B's corpus as a packed .npz,
+    the canonical flags, on-device sampling, 2 epochs and the initial cost.
+    Returns the model prefix, the stats and the launches of the command."""
+    corpus_path = os.path.join(tmp, "corpus.npz")
+    corpus.save(corpus_path)
+    prefix = os.path.join(tmp, "m")
+    argv = [corpus_path, "--output", prefix, "--device", str(device), *canonical_flags(sizes),
+            "--on_device_sampling", "--steps_per_call", str(sizes["steps_per_call"]),
+            "--num_epochs", "2", "--compute_initial_cost", "--seed", str(seed + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    logs, wall_s = run_command(train_cli.main, argv, "F1 cunvsm-torch-train")
+    launches = launch_counts()
+    (initial,) = logs.args("Initial cost")  # (cost, batches, seconds)
+    epochs = epoch_records(logs)
+    costs = [initial[0]] + [c for c, _, _ in epochs]
+    if not (len(epochs) == 2 and all(np.isfinite(costs)) and costs[-1] < costs[0]):
+        raise AssertionError(f"F1: initial and epoch costs {costs}")
+    # The initial-cost pass is forward only: no sweep.  The trained steps
+    # launch the sweep twice and the cast once each.
+    at_initial = logs.at_initial_cost
+    trained = {key: launches[key] - at_initial[key] for key in launches}
+    steps = sum(n for _, n, _ in epochs)
+    if at_initial["sweep"] != 0 or trained != {"sweep": 2 * steps, "cast": steps}:
+        raise AssertionError(f"F1: launches {at_initial} in the initial-cost pass and "
+                             f"{trained} over {steps} trained steps")
+    log(f"F1 launches: initial-cost pass {at_initial} over {initial[1]} batches; "
+        f"{trained} over {steps} trained steps")
+
+    shapes = [(sizes["num_words"], sizes["word_dim"]), (sizes["num_entities"], sizes["entity_dim"]),
+              (sizes["word_dim"], sizes["entity_dim"]), (sizes["entity_dim"],)]
+    tables = [checkpoint.load_model_hdf5(prefix, epoch, device) for epoch in (1, 2)]
+    for epoch, params in zip((1, 2), tables):
+        for name, t, shape in zip(params._fields, params, shapes):
+            if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"F1: {name} of _{epoch}.hdf5 is {tuple(t.shape)} or not finite")
+    if torch.equal(tables[0].entity_reprs, tables[1].entity_reprs):
+        raise AssertionError("F1: the second epoch left the entity table as it was")
+    meta = checkpoint.load_meta(prefix)
+    if not (checkpoint.load_strings(prefix + "_vocab.txt") == corpus.vocab.terms
+            and checkpoint.load_strings(prefix + "_docnos.txt") == corpus.docnos
+            and meta.total_terms == corpus.vocab.total_terms):
+        raise AssertionError("F1: the _meta or a sidecar does not describe the corpus")
+    train_s = sum(s for _, _, s in epochs)
+    stats = dict(
+        wall_s=wall_s, initial_cost=initial[0], epoch_costs=costs[1:],
+        initial_cost_s=initial[2], initial_cost_batches=initial[1],
+        ms_per_step_by_epoch=[1e3 * s / n for _, n, s in epochs],
+        pairs_per_s=sizes["batch"] * steps / train_s,
+        peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+    )
+    log("F1 " + json.dumps(stats))
+    return prefix, launches
+
+
+# The least share of top-10 positions at which F2's float32 and bfloat16
+# runs rank the same document (a sanity check of the run files).
+TOP10_AGREEMENT = 0.95
+# The most by which the bfloat16 engine's scores on the card may differ
+# from float32 sums of the same bfloat16 products (exact in float32): the
+# summation order over 256 terms moves a cosine by about 1e-6, and scores
+# rounded to bfloat16 would miss by about 1e-3.
+BF16_SCORE_ATOL = 1e-5
+
+
+def read_run_lines(path):
+    """qid -> [(docno, rank, score)] in the file's order."""
+    run = {}
+    with open(path) as f:
+        for line in f:
+            qid, _, docno, rank, score, _ = line.split()
+            run.setdefault(qid, []).append((docno, int(rank), float(score)))
+    return run
+
+
+def phase_f2(device, corpus, prefix, epoch, seed, tmp):
+    """cunvsm-torch-query on F1's model: 100 topics from --seed, top-1000
+    with float32 and bfloat16 scores, then a qrels file as --top_k."""
+    rng = np.random.RandomState(seed)
+    terms, n_docs = corpus.vocab.terms, corpus.num_docs
+    topics = {str(q + 1): " ".join(terms[j] for j in rng.randint(0, len(terms), 3))
+              for q in range(100)}
+    topics_path, qrels_path = os.path.join(tmp, "topics.txt"), os.path.join(tmp, "qrels.txt")
+    with open(topics_path, "w") as f:
+        f.writelines(f"{q} {text}\n" for q, text in topics.items())
+    qrels = {q: [corpus.docnos[i] for i in rng.choice(n_docs, 50, replace=False)] for q in topics}
+    with open(qrels_path, "w") as f:
+        f.writelines(f"{q} 0 {d} 1\n" for q, docs in qrels.items() for d in docs)
+    common = ["--topics", topics_path, "--model", prefix, "--epoch", str(epoch),
+              "--device", str(device)]
+    runs, stats = {}, {}
+    for name, extra, want in (
+        ("float32", ["--top_k", "1000", "--score_dtype", "float32"], min(1000, n_docs)),
+        ("bfloat16", ["--top_k", "1000", "--score_dtype", "bfloat16"], min(1000, n_docs)),
+        ("qrels", ["--top_k", qrels_path], 50),
+    ):
+        out = os.path.join(tmp, f"run_{name}")
+        _, stats[f"{name}_s"] = run_command(query_cli.main, [*common, *extra, out],
+                                            f"F2 cunvsm-torch-query {name}")
+        runs[name] = read_run_lines(out)
+        if set(runs[name]) != set(topics):
+            raise AssertionError(f"F2 {name}: {len(runs[name])} of {len(topics)} topics answered")
+        for qid, lines in runs[name].items():
+            scores = np.array([s for _, _, s in lines])
+            if not (len(lines) == want and [r for _, r, _ in lines] == list(range(1, want + 1))
+                    and np.all(np.isfinite(scores)) and np.all(np.diff(scores) <= 0)):
+                raise AssertionError(f"F2 {name}: topic {qid} has {len(lines)} lines, not "
+                                     f"{want} ranked by descending finite scores")
+    same = sum(a[0] == b[0] for q in topics
+               for a, b in zip(runs["float32"][q][:10], runs["bfloat16"][q][:10]))
+    stats["top10_positions_equal"] = same / (10 * len(topics))
+    log(f"F2 top-10 positions equal in the float32 and bfloat16 runs: {same} of "
+        f"{10 * len(topics)}; commands {stats}")
+    if stats["top10_positions_equal"] < TOP10_AGREEMENT:
+        raise AssertionError(f"F2: float32 and bfloat16 agree on {same} of the top-10 positions")
+
+    engines = {dtype: load_query_engine(prefix, epoch, device, nonlinearity="tanh",
+                                        score_dtype=dtype)
+               for dtype in (None, torch.bfloat16)}
+    worst = 0.0
+    for q, text in topics.items():
+        want = dict(engines[None].score_documents(tokenize(text), qrels[q]))
+        got = {d: s for d, _, s in runs["qrels"][q]}
+        if got.keys() != want.keys():
+            raise AssertionError(f"F2 qrels: topic {q} ranks other documents than its qrels")
+        worst = max(worst, max(abs(got[d] - want[d]) for d in got))
+    if worst > 1e-6:  # the run file rounds to 6 decimals
+        raise AssertionError(f"F2 qrels: scores differ from score_documents by {worst:.3e}")
+    stats["qrels_max_abs_err"] = worst
+    q = torch.as_tensor(np.stack([engines[None].query_representation(tokenize(t))
+                                  for t in topics.values()]), device=device)
+
+    bf = engines[torch.bfloat16]
+    got, idx = _rank_kernel(q, bf.transform_w, bf._bias_scaled, bf._entity_norm, 1000,
+                            bf.nonlinearity)
+    q_bf = _project_queries(q, bf.transform_w, bf._bias_scaled, bf.nonlinearity).to(torch.bfloat16)
+    want = q_bf.float() @ bf._entity_norm.float().T
+    err = max(float((got - want.gather(1, idx)).abs().max()),
+              float((got - torch.topk(want, 1000, dim=1).values).abs().max()))
+    stats["bfloat16_scores_max_abs_err"] = err
+    del want
+    if got.dtype != torch.float32 or not err <= BF16_SCORE_ATOL:
+        raise AssertionError(f"F2: the bfloat16 engine's {got.dtype} scores differ from float32 "
+                             f"sums of its bfloat16 products by {err:.3e} > {BF16_SCORE_ATOL}")
+    for dtype, engine in engines.items():
+        stats[f"device_rank_ms_{'bfloat16' if dtype else 'float32'}"] = statistics.median(
+            cuda_ms(lambda: _rank_kernel(q, engine.transform_w, engine._bias_scaled,
+                                         engine._entity_norm, 1000, engine.nonlinearity)))
+    log("F2 " + json.dumps(stats))
+
+
+def phase_f3(device, tmp):
+    """--reference_rng through cunvsm-torch-train on the card and on the
+    CPU, then the card's model through cunvsm-torch-query."""
+    docs, labels = three_topic_corpus()
+    corpus_path = os.path.join(tmp, "three_topics.trec")
+    with open(corpus_path, "w") as f:
+        f.writelines(f"<DOC>\n<DOCNO>{d}</DOCNO>\n<TEXT>\n{text}\n</TEXT>\n</DOC>\n"
+                     for d, text in docs)
+    epochs = 30
+    flags = [corpus_path, "--update_method", "full_adam", "--nonlinearity", "tanh",
+             "--bias_negative_samples", "--word_repr_size", "24", "--entity_repr_size", "16",
+             "--num_epochs", str(epochs), "--batch_size", "32", "--window_size", "4",
+             "--num_random_entities", "5", "--learning_rate", "0.01",
+             "--regularization_lambda", "0.01", "--seed", "1", "--reference_rng",
+             "--max_vocabulary_size", "0", "--min_document_frequency", "0",
+             "--max_document_frequency", "0"]
+    out = []
+    for name, dev, per_step in (("card", device, {"sweep": 2, "cast": 0}),
+                                ("cpu", torch.device("cpu"), {"sweep": 0, "cast": 0})):
+        prefix = os.path.join(tmp, f"reference_{name}")
+        reset_launches()
+        logs, wall_s = run_command(train_cli.main, [*flags, "--output", prefix, "--device",
+                                                    str(dev)], f"F3 cunvsm-torch-train {name}")
+        records = epoch_records(logs)
+        steps = sum(n for _, n, _ in records)
+        launches = read_launches(steps, f"F3 {name}", per_step)
+        out.append((prefix, [c for c, _, _ in records], wall_s, steps, launches))
+    (card, card_costs, card_s, steps, card_launches), (cpu, cpu_costs, cpu_s, _, _) = out
+    a = checkpoint.load_model_hdf5(card, epochs, torch.device("cpu"))
+    b = checkpoint.load_model_hdf5(cpu, epochs, torch.device("cpu"))
+    abs_err = max(float((x - y).abs().max()) for x, y in zip(a, b))
+    if not all(torch.allclose(x, y, rtol=1e-5, atol=1e-4) for x, y in zip(a, b)):
+        raise AssertionError(f"F3: the card's tables differ from the CPU's by {abs_err:.3e}")
+    cost_err = float(np.max(np.abs(np.subtract(card_costs, cpu_costs)) / np.abs(cpu_costs)))
+
+    topics_path, run_path = os.path.join(tmp, "three_topics.txt"), os.path.join(tmp, "run_f3")
+    with open(topics_path, "w") as f:
+        f.writelines(f"{t} {' '.join(words[:3])}\n" for t, words in TOPICS.items())
+    _, query_s = run_command(query_cli.main, ["--topics", topics_path, "--model", card, "--epoch",
+                                              str(epochs), "--device", str(device), "--top_k",
+                                              "all", run_path], "F3 cunvsm-torch-query")
+    docnos = [d for d, _ in docs]
+    qrels = {t: {d: int(labels[d] == t) for d in docnos} for t in TOPICS}
+    map_ = evaluate_run(read_run(run_path), qrels, measures=("map",))["map"]
+    stats = dict(steps=steps, cost_first=card_costs[0], cost_last=card_costs[-1],
+                 card_vs_cpu_cost_rel_err=cost_err, card_vs_cpu_table_max_abs_err=abs_err,
+                 map=map_, card_train_s=card_s,
+                 cpu_train_s=cpu_s, query_s=query_s)
+    log("F3 " + json.dumps(stats))
+    if not map_ > 0.8:
+        raise AssertionError(f"F3: MAP {map_} <= 0.8")
+    return card_launches
+
+
+def phase_f(device, sizes, corpus, seed):
+    """The command-line entry points; returns the launches of F1 and F3's
+    card run."""
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(levelname)s: %(message)s")
+    os.makedirs(BUILD, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase_f_", dir=BUILD)
+    try:
+        prefix, f1 = phase_f1(device, sizes, corpus, seed, tmp)
+        phase_f2(device, corpus, prefix, 2, seed, tmp)
+        f3 = phase_f3(device, tmp)
+    finally:
+        shutil.rmtree(tmp)
+    return {key: f1[key] + f3[key] for key in f1}
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -921,6 +1231,9 @@ def main():
     by_path["D2"] = phase_d2(device, CANONICAL, corpus_b)[1]
     phase_e0(device)
     by_path["E"] = phase_e(device, CANONICAL, corpus_b, args.seed)
+    t0 = time.perf_counter()
+    by_path["F"] = phase_f(device, CANONICAL, corpus_b, args.seed)
+    log(f"F done in {time.perf_counter() - t0:.1f}s")
     launches = {key: sum(p[key] for p in by_path.values()) for key in ("sweep", "cast")}
 
     meta = {

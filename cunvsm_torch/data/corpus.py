@@ -19,6 +19,7 @@ Document selection rules follow IndriSource::initialize
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -123,6 +124,14 @@ class Corpus:
         )
 
 
+def is_indri_repository(path: str) -> bool:
+    """A directory with a ``manifest`` file and an ``index`` directory, as
+    ``cunvsm_tpu.data.indri.is_indri_repository`` recognizes one."""
+    return os.path.isdir(path) and os.path.isfile(
+        os.path.join(path, "manifest")
+    ) and os.path.isdir(os.path.join(path, "index"))
+
+
 def build_corpus(
     docs: Iterable[Tuple[str, str]],
     cfg: DataConfig,
@@ -192,8 +201,15 @@ def load_corpus(
     A ``.npz`` path loads a packed corpus previously written with
     ``Corpus.save`` (no re-tokenization); TRECTEXT and JSONL go through the
     pure-Python pipeline.  The JAX package's Indri-repository reader and its
-    C++ ingestion library are not part of this package yet.
+    C++ ingestion library are not part of this package yet: an Indri
+    repository raises ``NotImplementedError`` rather than being read as
+    text files.
     """
+    if is_indri_repository(cfg.corpus_path):
+        raise NotImplementedError(
+            f"{cfg.corpus_path} is an Indri repository; the Indri reader is not "
+            "ported yet (ROADMAP.md queue 1, item 7, data/indri.py)"
+        )
     if cfg.corpus_path.endswith(".npz"):
         packed = Corpus.load(cfg.corpus_path)
         if packed.window_size != window_size:

@@ -59,7 +59,7 @@ class DeviceCorpus(NamedTuple):
 
 def prepare_device_corpus(
     corpus: Corpus,
-    device=None,
+    device,
     weighting: Weighting = Weighting.UNIFORM,
     feature_weighting: FeatureWeighting = FeatureWeighting.UNIFORM,
 ) -> DeviceCorpus:

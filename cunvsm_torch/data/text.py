@@ -48,11 +48,9 @@ def lemur_stopwords() -> frozenset:
     the vendored copy is the stopper recorded in the checked-in Brown index
     manifest, which Indri embeds verbatim from that same file.
     """
-    # Read by file path from the JAX package's resources (importing
-    # cunvsm_tpu would import jax).
     path = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-        "cunvsm_tpu", "resources", "lemur_stoplist.txt",
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "resources", "lemur_stoplist.txt",
     )
     with open(path) as f:
         return frozenset(w.strip() for w in f if w.strip())

@@ -8,8 +8,8 @@ are written by hand:
 * ``<prefix>_<epoch>.hdf5``: four little-endian float32 datasets in the
   root group, the reference's names and shapes (``io/hdf5.py``).  The JAX
   package lets h5py chunk tables of 8192 rows or more into blocks of 2048
-  rows; this package writes every table contiguous.  h5py and the
-  reference's ``py/nvsm`` read both.
+  rows; this package writes every table contiguous.  h5py, the
+  reference's ``py/nvsm`` and this package's reader read both.
 * ``<prefix>_meta``: the ``lse.Metadata`` message
   (``cunvsm_tpu/proto/nvsm.proto``, proto3, every field int32) with a
   wire encoder and decoder of its own.  The bytes equal
@@ -74,10 +74,11 @@ def save_model_hdf5(params: ModelParams, prefix: str, epoch, overwrite: bool = F
     return path
 
 
-def load_model_hdf5(prefix: str, epoch, device=None, dtype=None) -> ModelParams:
+def load_model_hdf5(prefix: str, epoch, device, dtype=None) -> ModelParams:
     """The tables of ``<prefix>_<epoch>.hdf5`` as tensors on ``device``.
-    Reads the files ``save_model_hdf5`` writes and contiguous files that
-    h5py writes; a chunked or filtered file raises ``ValueError``."""
+    Reads the files ``save_model_hdf5`` writes and the contiguous and
+    chunked files that h5py writes (every file of the JAX package's
+    writer); a filtered file raises ``ValueError``."""
     with open(checkpoint_path(prefix, epoch), "rb") as f:
         data = hdf5.read_datasets(f)
 

@@ -13,10 +13,15 @@ which h5py and the HDF5 library read:
   endian, in row-major order.
 
 No structure of that layout carries a checksum.  The reader walks the same
-structures, so it also reads the contiguous float32 datasets that h5py
-writes in its default layout; anything else (a chunked or filtered dataset,
-another datatype, a version 2 object header, a later superblock) raises a
-``ValueError`` that names it.
+structures, so it also reads the float32 datasets that h5py writes in its
+default layout, contiguous or chunked without filters (the JAX package's
+writer chunks tables of 8192 rows or more into blocks of 2048 rows): a
+chunked dataset's layout message (version 3, class 2) points at a version 1
+B-tree of type 1, whose leaves address the chunks by their element
+offsets; every chunk is stored whole, so the edge chunks are trimmed to the
+dataset's shape.  Anything else (a filtered dataset, another datatype, a
+version 2 object header, a later superblock) raises a ``ValueError`` that
+names it.
 """
 
 from __future__ import annotations
@@ -170,6 +175,34 @@ class _Reader:
                     out[kind] = (flags, body)
         return out
 
+    def chunks(self, btree: int, rank: int):
+        """(chunk address, stored bytes, element offsets) of every chunk
+        under the raw-data B-tree at ``btree``, for a dataset of ``rank``
+        dimensions: all levels walked."""
+        key_size = 8 + 8 * (rank + 1)  # chunk size, filter mask, offsets
+        nodes, out = [btree], []
+        while nodes:
+            node = nodes.pop()
+            hdr = self.read(node, 24)
+            if hdr[:4] != b"TREE" or hdr[4] != 1:
+                raise ValueError("HDF5: bad chunk B-tree node")
+            level, used = hdr[5], struct.unpack("<H", hdr[6:8])[0]
+            # Keys and children interleave: key 0, child 0, key 1, ...
+            body = self.read(node + 24, used * (key_size + 8) + key_size)
+            for i in range(used):
+                key = body[i * (key_size + 8):(i + 1) * (key_size + 8) - 8]
+                child = struct.unpack("<Q", body[(i + 1) * (key_size + 8) - 8:
+                                                 (i + 1) * (key_size + 8)])[0]
+                if level:
+                    nodes.append(child)
+                    continue
+                size, mask = struct.unpack("<II", key[:8])
+                if mask:
+                    raise ValueError("HDF5: a chunk skips filters; not read")
+                offsets = struct.unpack(f"<{rank}Q", key[8:8 + 8 * rank])
+                out.append((child, size, offsets))
+        return out
+
     def group_entries(self, btree: int, heap: int) -> Dict[str, int]:
         """name -> object header address of every entry of a group."""
         hdr = self.read(heap, 32)
@@ -232,10 +265,13 @@ def read_datasets(f: BinaryIO) -> Dict[str, np.ndarray]:
             raise ValueError(f"HDF5: dataset {name} has dataspace version {dataspace[0]}")
         shape = struct.unpack(f"<{dataspace[1]}Q", dataspace[8:8 + 8 * dataspace[1]])
         layout = msgs[MSG_LAYOUT][1]
+        if layout[:2] == b"\x03\x02":
+            out[name] = _read_chunked(h, name, shape, layout)
+            continue
         if layout[:2] != b"\x03\x01":
             kind = {0: "compact", 2: "chunked", 3: "virtual"}.get(layout[1], "other")
             raise ValueError(f"HDF5: dataset {name} has a {kind} layout (message version "
-                             f"{layout[0]}); only contiguous datasets are read")
+                             f"{layout[0]}); only contiguous and chunked datasets are read")
         addr, nbytes = struct.unpack("<QQ", layout[2:18])
         count = int(np.prod(shape, dtype=np.int64))
         if addr == UNDEF or nbytes != 4 * count:
@@ -245,4 +281,34 @@ def read_datasets(f: BinaryIO) -> Dict[str, np.ndarray]:
         if arr.size != count:
             raise ValueError(f"HDF5: dataset {name} is truncated")
         out[name] = arr.reshape(shape)
+    return out
+
+
+def _read_chunked(h: _Reader, name: str, shape: Tuple[int, ...], layout: bytes) -> np.ndarray:
+    """A chunked dataset (layout message version 3, class 2): dimensionality
+    rank + 1, the B-tree address, then rank + 1 chunk dimensions of 4 bytes,
+    the last the element size.  Chunks that were never written hold the
+    fill value, 0."""
+    rank = layout[2] - 1
+    if rank != len(shape):
+        raise ValueError(f"HDF5: dataset {name}: chunk rank {rank} for shape {shape}")
+    btree = struct.unpack("<Q", layout[3:11])[0]
+    dims = struct.unpack(f"<{rank + 1}I", layout[11:11 + 4 * (rank + 1)])
+    chunk, elem = dims[:rank], dims[rank]
+    if elem != 4:
+        raise ValueError(f"HDF5: dataset {name} has {elem}-byte chunk elements")
+    out = np.zeros(shape, np.float32)
+    if btree == UNDEF:
+        return out
+    chunk_bytes = 4 * int(np.prod(chunk, dtype=np.int64))
+    for addr, size, offsets in h.chunks(btree, rank):
+        if size != chunk_bytes:
+            raise ValueError(f"HDF5: dataset {name} stores a chunk of {size} bytes, "
+                             f"expected {chunk_bytes}")
+        if any(o >= n or o % c for o, n, c in zip(offsets, shape, chunk)):
+            raise ValueError(f"HDF5: dataset {name} has a chunk at {offsets} outside {shape}")
+        block = np.frombuffer(h.read(addr, size), "<f4").reshape(chunk)
+        # The edge chunks are stored whole: trim them to the dataset.
+        region = tuple(slice(o, min(o + c, n)) for o, c, n in zip(offsets, chunk, shape))
+        out[region] = block[tuple(slice(0, r.stop - r.start) for r in region)]
     return out

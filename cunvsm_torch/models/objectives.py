@@ -49,12 +49,16 @@ class TextEntityBatch(NamedTuple):
     feature_weights: [B, W] per-term weights.
     labels:          [B] int64 entity (document) ids.
     weights:         [B] per-instance weights; padding rows carry 0.
+    negatives:       optional [B, k] int64 negative entity ids drawn on the
+                     host (reference-RNG replay, labels.cu:3-22); None
+                     lets the step draw them.
     """
 
     features: torch.Tensor
     feature_weights: torch.Tensor
     labels: torch.Tensor
     weights: torch.Tensor
+    negatives: Optional[torch.Tensor] = None
 
     @classmethod
     def from_numpy(cls, np_batch, device=None, dtype=torch.float32):
@@ -63,11 +67,13 @@ class TextEntityBatch(NamedTuple):
         def put(x, dt):
             return torch.from_numpy(x).to(device=device, dtype=dt)
 
+        negatives = getattr(np_batch, "negatives", None)
         return cls(
             features=put(np_batch.features, torch.int64),
             feature_weights=put(np_batch.feature_weights, dtype),
             labels=put(np_batch.labels, torch.int64),
             weights=put(np_batch.weights, dtype),
+            negatives=None if negatives is None else put(negatives, torch.int64),
         )
 
 

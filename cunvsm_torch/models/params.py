@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from cunvsm_torch.config import ModelDesc
+from cunvsm_torch.data.stdrng import MinstdRand0, glorot_uniform_f32
 
 
 class ModelParams(NamedTuple):
@@ -52,7 +53,8 @@ def init_params(
     num_entities: int,
     desc: ModelDesc,
     dtype=torch.float32,
-    device=None,
+    *,
+    device,
 ) -> ModelParams:
     """Glorot-init representations and transform; zero bias
     (params.cu:361-372).  Draws words, entities, then the transform from
@@ -62,6 +64,40 @@ def init_params(
         word_reprs=glorot_uniform(generator, num_words, d_w, dtype, device),
         entity_reprs=glorot_uniform(generator, num_entities, d_e, dtype, device),
         transform_w=glorot_uniform(generator, d_w, d_e, dtype, device),
+        transform_b=torch.zeros((d_e,), dtype=dtype, device=device),
+    )
+
+
+def reference_init_params(
+    engine: MinstdRand0,
+    num_words: int,
+    num_entities: int,
+    desc: ModelDesc,
+    dtype=torch.float32,
+    *,
+    device,
+) -> ModelParams:
+    """Bit-exact twin of the reference's host Glorot init, drawn from the
+    shared minstd_rand0 ``engine`` (``data/stdrng.py``), as
+    ``cunvsm_tpu.models.params.reference_init_params`` draws it.
+
+    Draw order follows ModelBase::initialize (model.cu:37-43): words, then
+    entities, then the transform; the bias is zero and consumes no draws
+    (params.cu:361-372).  Each matrix is filled in device_matrix
+    column-major order (cuda_utils.h:44-47) with the limit
+    sqrt(6 / (rows + cols)) of the device shape, (repr_size, num_objects)
+    for representations and (entity_dim, word_dim) for the transform, which
+    is a plain reshape of the draw stream into this package's layouts.  The
+    values are computed on the host in float32 as in the reference's
+    release build, then copied to ``device`` in ``dtype``."""
+    d_w, d_e = desc.word_repr_size, desc.entity_repr_size
+    words = glorot_uniform_f32(engine, d_w, num_words).reshape(num_words, d_w)
+    entities = glorot_uniform_f32(engine, d_e, num_entities).reshape(num_entities, d_e)
+    transform = glorot_uniform_f32(engine, d_e, d_w).reshape(d_w, d_e)
+    return ModelParams(
+        word_reprs=tensor_from_numpy(words, device, dtype),
+        entity_reprs=tensor_from_numpy(entities, device, dtype),
+        transform_w=tensor_from_numpy(transform, device, dtype),
         transform_b=torch.zeros((d_e,), dtype=dtype, device=device),
     )
 

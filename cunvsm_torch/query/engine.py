@@ -3,7 +3,14 @@
 Port of the single-device path of ``cunvsm_tpu/query/engine.py``.  The JAX
 package ranks outside any Pallas kernel (one matmul and ``lax.top_k``), so
 here it is ``torch.matmul`` and ``torch.topk`` over the L2-normalized
-entity rows, in float32.
+entity rows.  With ``score_dtype=torch.bfloat16`` the normalized matrix is
+kept in bfloat16 and the queries are rounded to bfloat16, but the scores
+are float32, as JAX's ``preferred_element_type=float32`` gives them, so a
+bfloat16 result never rounds the scores and reorders near-ties.  On the card
+the product reads the bfloat16 operands and writes float32
+(``torch.mm(..., out_dtype=torch.float32)``, float32 accumulation); on the
+CPU both operands are widened first (the product of two bfloat16 values is
+exact in float32).
 
 Query-side math (py/nvsm/base.py): the query representation is the
 weighted *mean* of its in-vocabulary word vectors (normalized by the weight
@@ -19,6 +26,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from cunvsm_torch.io import checkpoint as ckpt
 from cunvsm_torch.models.params import ModelParams
 
 
@@ -34,15 +42,22 @@ def _rank_kernel(
     query_reprs: torch.Tensor,  # [Q, d_w]
     transform_w: torch.Tensor,
     transform_b_scaled: torch.Tensor,
-    entity_norm: torch.Tensor,  # [D, d_e], rows L2-normalized, float32
+    entity_norm: torch.Tensor,  # [D, d_e], rows L2-normalized
     top_k: int,
     nonlinearity: Optional[str],
 ):
-    """(scores, indices), each [Q, top_k], best first."""
+    """(scores, indices), each [Q, top_k], best first; float32 scores
+    whatever the dtype of ``entity_norm``."""
     projected = _project_queries(
         query_reprs, transform_w, transform_b_scaled, nonlinearity
     )
-    scores = projected.to(entity_norm.dtype) @ entity_norm.T  # [Q, D] cosines
+    q = projected.to(entity_norm.dtype)
+    if entity_norm.dtype == torch.float32:
+        scores = q @ entity_norm.T  # [Q, D] cosines
+    elif entity_norm.is_cuda:
+        scores = torch.mm(q, entity_norm.T, out_dtype=torch.float32)
+    else:
+        scores = q.to(torch.float32) @ entity_norm.to(torch.float32).T
     return torch.topk(scores, top_k, dim=1)
 
 
@@ -58,9 +73,14 @@ class QueryEngine:
         bias_coefficient: float = 0.0,
         self_information: bool = False,
         l2norm_phrase: bool = False,
+        score_dtype: Optional[torch.dtype] = None,
     ):
+        """``score_dtype=torch.bfloat16`` stores the normalized document
+        matrix in bfloat16 (half the bytes the ranking reads); the scores
+        stay float32 (see the module doc)."""
         self.term_to_id: Dict[str, int] = {t: i for i, t in enumerate(terms) if t}
         self.docnos = list(docnos)
+        self._docno_to_id: Dict[str, int] = {d: i for i, d in enumerate(self.docnos)}
         self.term_frequencies = term_frequencies
         self.total_terms = total_terms
         self.nonlinearity = nonlinearity
@@ -73,7 +93,9 @@ class QueryEngine:
         self._bias_scaled = bias_coefficient * params.transform_b
         entity = params.entity_reprs.to(torch.float32)
         norms = torch.linalg.vector_norm(entity, dim=1, keepdim=True)
-        self._entity_norm = entity / torch.clamp(norms, min=1e-30)
+        self._entity_norm = (entity / torch.clamp(norms, min=1e-30)).to(
+            score_dtype or torch.float32
+        )
 
     def query_representation(
         self, query_terms: Sequence[str], strict: bool = False
@@ -131,3 +153,76 @@ class QueryEngine:
             ]
             for i, qid in enumerate(qids)
         }
+
+    def score_documents(
+        self, query_terms: Sequence[str], docnos: Sequence[str]
+    ) -> Optional[List[Tuple[str, float]]]:
+        """Cosine scores restricted to a document subset, best first (the
+        brute-force path of qrel-restricted ranking, base.py:406-424);
+        None for a query without in-vocabulary terms."""
+        r = self.query_representation(query_terms)
+        if r is None:
+            return None
+        ids = [self._docno_to_id[d] for d in docnos if d in self._docno_to_id]
+        if not ids:
+            return []
+        proj = np.asarray(self.infer(r))
+        proj = proj / max(np.linalg.norm(proj), 1e-30)
+        # Quantized as rank() quantizes the queries, so that the subset
+        # scores are rank()'s scores.
+        proj = torch.from_numpy(proj).to(self._entity_norm.dtype).to(torch.float32).numpy()
+        rows = torch.as_tensor(ids, device=self._entity_norm.device)
+        sub = self._entity_norm[rows].to(torch.float32).cpu().numpy()
+        scores = sub @ proj
+        order = np.argsort(-scores)
+        return [(self.docnos[ids[i]], float(scores[i])) for i in order]
+
+    def infer(self, query_repr: np.ndarray) -> np.ndarray:
+        """Project a query representation into entity space
+        (base.py:311-323)."""
+        out = query_repr @ self.transform_w.cpu().numpy() + self._bias_scaled.cpu().numpy()
+        if self.nonlinearity == "tanh":
+            out = np.tanh(out)
+        return out
+
+    def related_terms(self, term: str, k: int = 10) -> List[Tuple[str, float]]:
+        """Nearest terms by cosine in word space (base.py related_terms)."""
+        if term not in self.term_to_id:
+            return []
+        ids = {i: t for t, i in self.term_to_id.items()}
+        w = self._word_reprs_np
+        q = w[self.term_to_id[term]]
+        scores = (w @ q) / (
+            np.linalg.norm(w, axis=1) * max(np.linalg.norm(q), 1e-30) + 1e-30
+        )
+        order = np.argsort(-scores)
+        out = []
+        for i in order:
+            if i == self.term_to_id[term] or i not in ids:
+                continue
+            out.append((ids[int(i)], float(scores[i])))
+            if len(out) == k:
+                break
+        return out
+
+    def term_similarity(self, a: str, b: str) -> Optional[float]:
+        if a not in self.term_to_id or b not in self.term_to_id:
+            return None
+        va = self._word_reprs_np[self.term_to_id[a]]
+        vb = self._word_reprs_np[self.term_to_id[b]]
+        return float(va @ vb / (np.linalg.norm(va) * np.linalg.norm(vb) + 1e-30))
+
+
+def load_query_engine(prefix: str, epoch, device, **kwargs) -> QueryEngine:
+    """A QueryEngine on ``device`` from ``<prefix>_<epoch>.hdf5``, the
+    ``_meta`` term frequencies and the vocabulary and docno sidecars."""
+    params = ckpt.load_model_hdf5(prefix, epoch, device)
+    meta = ckpt.load_meta(prefix)
+    terms = ckpt.load_strings(f"{prefix}_vocab.txt")
+    docnos = ckpt.load_strings(f"{prefix}_docnos.txt")
+    freqs = np.zeros(len(terms), dtype=np.int64)
+    for t in meta.term:
+        freqs[t.model_term_id] = t.term_frequency
+    return QueryEngine(
+        params, terms, docnos, term_frequencies=freqs, total_terms=meta.total_terms, **kwargs
+    )

@@ -13,8 +13,8 @@ Port of ``cunvsm_tpu/train/step.py`` (model.cu:222-228):
 
 The negative-sampling resolution (``resolve_negative_sampling`` and its
 constants) is copied unchanged, so both packages pick the same layout for
-the same configuration.  Reference-RNG replay is not part of this package
-yet (ROADMAP.md queue 1, item 5).
+the same configuration.  Under reference-RNG replay the host draws every
+instance's negatives and they ride in the batch (``TextEntityBatch.negatives``).
 """
 
 from __future__ import annotations
@@ -169,7 +169,8 @@ def _text_entity_grads(
     """(cost, AscentGrads).  ``negative_ids`` replaces the draw from
     ``generator``: the [P] pool ids under the rolled-pool layout, the [k]
     shared ids under ``shared_negatives``, the [B, k] per-instance
-    negatives otherwise."""
+    negatives otherwise, where the batch's own ``negatives`` (host-drawn
+    under reference-RNG replay) come next."""
     if cfg.shared_negatives and cfg.negative_pool_size > 0:
         raise ValueError("shared_negatives and negative_pool_size are mutually exclusive")
     num_entities = num_entities or params.num_entities
@@ -204,6 +205,8 @@ def _text_entity_grads(
             params, batch, neg_ids, desc, **common
         )
         return cost, grads
+    if negative_ids is None:
+        negative_ids = batch.negatives
     if negative_ids is None:
         entity_ids = obj.sample_negative_entities(
             generator, batch.labels, num_entities, cfg.num_random_entities
@@ -296,10 +299,6 @@ def make_train_step(
     when the entity table is larger than the collection.  The returned cost
     is a 0-d tensor on ``device``; reading it waits for the step.
     """
-    if cfg.reference_rng:
-        raise NotImplementedError(
-            "reference_rng replay is not ported yet (ROADMAP.md queue 1, item 5)"
-        )
     if kind is None:
         kind = objective_kind_from_config(cfg)
     optimizer = Optimizer(cfg)

@@ -34,6 +34,21 @@ run therefore draws what an uninterrupted run would have drawn; the
 host-fed path replays its numpy batch stream with
 ``TextEntitySource.skip_epochs`` and fast-forwards the similarity stream
 past the batches already trained.
+
+Reference-RNG replay (``cfg.reference_rng``, host-fed only) draws what the
+CUDA reference draws, from one host ``minstd_rand0`` stream seeded with
+``cfg.seed``, in its order: epoch 1's window positions and shuffle, the
+Glorot init (``reference_init_params``), then per batch the negatives,
+which ride in the batch; ``skip_epochs`` replays the stream on resume.
+
+``compute_initial_cost`` scores one host epoch forward-only before
+training (main.cu:544-562), each batch's draws from (seed,
+``INITIAL_COST_STREAM``, batch); like the JAX package's, it consumes that
+epoch of the host source, so training starts at the next draw.
+``profile_dir`` records the first trained epoch with ``torch.profiler``
+and writes a Chrome trace there; ``check_gradients`` holds every host-fed
+step's gradients to central finite differences first
+(``train/gradcheck.py``).
 """
 
 from __future__ import annotations
@@ -54,10 +69,12 @@ from cunvsm_torch.data.instances import FeatureWeighting, TextEntitySource, Weig
 from cunvsm_torch.data.sources import Prefetcher, SimilaritySource, repeating, zip_sources
 from cunvsm_torch.io import checkpoint as ckpt
 from cunvsm_torch.models.objectives import SimilarityBatch, TextEntityBatch
-from cunvsm_torch.models.params import ModelParams, init_params
+from cunvsm_torch.models.params import ModelParams, init_params, reference_init_params
 from cunvsm_torch.optim.updates import Optimizer, OptState
+from cunvsm_torch.train import gradcheck
 from cunvsm_torch.train.step import (
     ObjectiveKind,
+    make_cost_fn,
     make_train_step,
     objective_kind_from_config,
     resolve_negative_sampling,
@@ -67,6 +84,7 @@ logger = logging.getLogger(__name__)
 
 PERMUTATION_STREAM = 0x5A5A5A  # the JAX package's fold_in tag of the shuffle
 STEP_STREAM = 1
+INITIAL_COST_STREAM = 0x7FFFFFFF  # the JAX package's tag of the initial-cost keys
 
 
 def derived_seed(seed: int, stream: int, counter: int) -> int:
@@ -86,13 +104,15 @@ class TrainResult:
     batches_per_sec: float  # steps / wall seconds of this call's epochs
 
 
-def _not_ported(option: str, item: str):
+def not_ported(option: str, item: str) -> NotImplementedError:
+    """The error of an option this package does not have yet, naming the
+    ROADMAP item that ports it."""
     return NotImplementedError(f"{option} is not ported yet (ROADMAP.md queue 1, {item})")
 
 
 def _check_options(cfg, kind, on_device_sampling, steps_per_call, checkpoint_every,
                    similarity_source, mesh, shard_corpus, stratify_data_groups,
-                   check_gradients, profile_dir, compute_initial_cost):
+                   check_gradients, compute_initial_cost):
     """The JAX trainer's guards as ValueErrors with its conditions, then
     NotImplementedError for the options this package does not have."""
     if checkpoint_every < 1:
@@ -102,8 +122,16 @@ def _check_options(cfg, kind, on_device_sampling, steps_per_call, checkpoint_eve
             "reference_rng replays the host minstd_rand0 pipeline; "
             "on_device_sampling draws on device — pick one"
         )
+    if cfg.reference_rng and cfg.no_shuffle:
+        raise ValueError("reference_rng replay covers the stochastic generator")
     if kind != ObjectiveKind.TEXT_ENTITY and similarity_source is None:
         raise ValueError(f"objective {kind} requires a similarity source")
+    if cfg.reference_rng and compute_initial_cost:
+        raise ValueError(
+            "reference_rng does not replay the initial-cost pass's "
+            "label draws (main.cu:544-562); disable "
+            "compute_initial_cost under reference_rng"
+        )
     if stratify_data_groups and not on_device_sampling:
         raise ValueError("stratify_data_groups requires on_device_sampling")
     if on_device_sampling:
@@ -126,12 +154,9 @@ def _check_options(cfg, kind, on_device_sampling, steps_per_call, checkpoint_eve
         ("mesh", mesh is not None, "item 8, multi-GPU"),
         ("shard_corpus", shard_corpus, "item 8, multi-GPU"),
         ("stratify_data_groups", stratify_data_groups, "item 8, multi-GPU"),
-        ("check_gradients", check_gradients, "item 7, train/gradcheck.py"),
-        ("profile_dir", profile_dir, "item 7, trainer options"),
-        ("compute_initial_cost", compute_initial_cost, "item 7, trainer options"),
     ):
         if value:
-            raise _not_ported(option, item)
+            raise not_ported(option, item)
 
 
 def negative_layout(cfg: TrainConfig, desc: ModelDesc, num_entities: int) -> str:
@@ -142,6 +167,38 @@ def negative_layout(cfg: TrainConfig, desc: ModelDesc, num_entities: int) -> str
     if pool:
         return f"rolled pool P={pool} stride={stride} (k={cfg.num_random_entities})"
     return f"per-instance (k={cfg.num_random_entities})"
+
+
+def _log_initial_cost(desc, cfg, kind, device, generator, params, batches) -> None:
+    """main.cu:544-562: the mean forward-only cost over one host epoch,
+    logged as ``Initial cost``; batch i draws from (seed,
+    INITIAL_COST_STREAM, i)."""
+    start = time.perf_counter()
+    cost_fn = make_cost_fn(desc, cfg, kind, device, generator)
+    costs = []
+    for i, batch in enumerate(batches):
+        generator.manual_seed(derived_seed(cfg.seed, INITIAL_COST_STREAM, i))
+        costs.append(cost_fn(params, batch).reshape(1))
+    if costs:
+        logger.info("Initial cost: %.6f (%d batches, %.3fs)", float(torch.cat(costs).mean()),
+                    len(costs), time.perf_counter() - start)
+
+
+def _start_profiler(device):
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def _stop_profiler(profiler, profile_dir: str) -> None:
+    profiler.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "trace.json")
+    profiler.export_chrome_trace(path)
+    logger.info("Profile of the first trained epoch written to %s.", path)
 
 
 def train_model(
@@ -187,7 +244,7 @@ def train_model(
     kind = objective_kind_from_config(cfg)
     _check_options(cfg, kind, on_device_sampling, steps_per_call, checkpoint_every,
                    similarity_source, mesh, shard_corpus, stratify_data_groups,
-                   check_gradients, profile_dir, compute_initial_cost)
+                   check_gradients, compute_initial_cost)
     # UNIFORM feature weighting means every batch's feature_weights are all
     # ones: promise that statically so the step skips the multiply.
     if feature_weighting == FeatureWeighting.UNIFORM:
@@ -201,11 +258,23 @@ def train_model(
         weighting=weighting,
         feature_weighting=feature_weighting,
         seed=cfg.seed,
+        reference_rng=cfg.reference_rng,
+        num_negative=cfg.num_random_entities if cfg.reference_rng else 0,
     )
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
-    params = init_params(
-        generator, corpus.vocab.size, corpus.num_docs, desc, dtype=dtype, device=device
-    )
+    if cfg.reference_rng:
+        # The reference draws epoch 1's positions and shuffle in the
+        # generator's constructor (data_indri.cpp:279,328-398), then the
+        # Glorot init from the same engine (main.cu:499,520).
+        source.draw_next_epoch()
+        params = reference_init_params(
+            source.std_rng, corpus.vocab.size, corpus.num_docs, desc, dtype=dtype,
+            device=device,
+        )
+    else:
+        params = init_params(
+            generator, corpus.vocab.size, corpus.num_docs, desc, dtype=dtype, device=device
+        )
     opt_state = Optimizer(cfg).init(params)
 
     def reseed(stream: int, counter: int) -> None:
@@ -216,7 +285,7 @@ def train_model(
         _, _, last_epoch, extra = ckpt.load_training_state(output_prefix, params, opt_state)
         start_epoch = last_epoch + 1
         total_batches = int(extra.get("total_batches", 0))
-        if not on_device_sampling:
+        if not on_device_sampling or compute_initial_cost:
             source.skip_epochs(last_epoch)
         logger.info("Resumed from epoch %d at step %d.", last_epoch, total_batches)
     sim_iter = iter(repeating(similarity_source)) if similarity_source is not None else None
@@ -266,12 +335,13 @@ def train_model(
         batches_per_epoch = source.batches_per_epoch()
         grouped = batches_per_epoch // k * k  # later steps run as calls of one
 
+    # The host batches' weights stay float32 on the device, as the JAX
+    # trainer's do, so a float64 run rounds the NCE weights as JAX does.
     def to_device(b):
         if kind == ObjectiveKind.TEXT_ENTITY:
-            return TextEntityBatch.from_numpy(b, device, dtype)
+            return TextEntityBatch.from_numpy(b, device)
         te, sim = b
-        return (TextEntityBatch.from_numpy(te, device, dtype),
-                SimilarityBatch.from_numpy(sim, device, dtype))
+        return (TextEntityBatch.from_numpy(te, device), SimilarityBatch.from_numpy(sim, device))
 
     def host_batches():
         batches = source.epoch_batches()
@@ -280,7 +350,10 @@ def train_model(
         batches = (to_device(b) for b in batches)
         return Prefetcher(batches, depth=prefetch_depth) if prefetch_depth > 0 else batches
 
+    if compute_initial_cost:
+        _log_initial_cost(desc, cfg, kind, device, generator, params, host_batches())
     writer = ckpt.AsyncCheckpointWriter() if output_prefix else None
+    profiler = _start_profiler(device) if profile_dir else None
     epoch_costs: List[float] = []
     steps = 0
     train_start = time.perf_counter()
@@ -303,6 +376,9 @@ def train_model(
                 for i, batch in enumerate(host_batches()):
                     if i % k == 0 or i >= grouped:
                         reseed(STEP_STREAM, total_batches)
+                    if check_gradients:
+                        gradcheck.check_gradients(kind, params, batch, generator, device,
+                                                  desc, cfg, num_entities=corpus.num_docs)
                     cost = step(params, opt_state, batch)
                     costs.append(cost.reshape(1))
                     total_batches += 1
@@ -320,6 +396,10 @@ def train_model(
             logger.info("Epoch %d%s: cost=%.6f (%d steps, %.1fs)", epoch,
                         " (on-device sampling)" if on_device_sampling else "",
                         epoch_cost, epoch_steps, time.perf_counter() - epoch_start)
+            if profiler is not None:
+                # The first trained epoch only.
+                _stop_profiler(profiler, profile_dir)
+                profiler = None
             dumped = output_prefix and (epoch % checkpoint_every == 0 or epoch == cfg.num_epochs)
             if dumped:
                 writer.save_model(params, output_prefix, epoch, overwrite=resume)
@@ -333,6 +413,8 @@ def train_model(
                     writer.wait()
                 epoch_callback(epoch, params, epoch_cost)
     finally:
+        if profiler is not None:
+            profiler.stop()
         if writer is not None:
             writer.close()
     total_time = time.perf_counter() - train_start

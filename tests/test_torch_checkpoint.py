@@ -1,8 +1,11 @@
 """The port's checkpoint files against h5py, protobuf and the JAX writer.
 
 * ``<prefix>_<epoch>.hdf5``: h5py reads the port's file (names, shapes,
-  ``<f4``, values bit for bit, contiguous storage); the port reads the small
-  files the JAX package writes, and rejects its chunked and filtered ones;
+  ``<f4``, values bit for bit, contiguous storage); the port reads every
+  file the JAX package writes, bit for bit: the small contiguous ones and
+  the tables of 8192 rows or more that h5py chunks into 2048-row blocks
+  (one B-tree level, two levels past 64 chunks, a padded edge chunk), and
+  rejects filtered files and later superblocks;
 * ``<prefix>_meta``: the port's bytes equal ``SerializeToString()`` of the
   JAX package's ``build_metadata`` (OOV slot, negative and zero ids
   included), and each side parses the other's;
@@ -35,12 +38,14 @@ jckpt = pytest.importorskip("cunvsm_tpu.io.checkpoint")  # needs protobuf too
 from cunvsm_tpu.models.params import ModelParams as JModelParams  # noqa: E402
 from cunvsm_tpu.optim.updates import Optimizer as JOptimizer  # noqa: E402
 
+CPU = torch.device("cpu")
 NAMES = (tckpt.WORD_REPRS, tckpt.ENTITY_REPRS, tckpt.TRANSFORM, tckpt.BIAS)
 
 
 def make_params(rows=11, entities=9, d_w=7, d_e=5, seed=0, dtype=torch.float32):
     desc = ModelDesc(word_repr_size=d_w, entity_repr_size=d_e)
-    p = init_params(torch.Generator().manual_seed(seed), rows, entities, desc, dtype=dtype)
+    p = init_params(torch.Generator().manual_seed(seed), rows, entities, desc, dtype=dtype,
+                    device=CPU)
     return p._replace(transform_b=torch.linspace(-1, 1, d_e, dtype=dtype))
 
 
@@ -68,11 +73,11 @@ def test_h5py_reads_the_port_file(tmp_path, rows, dtype):
 def test_port_reads_its_own_file_bitwise(tmp_path):
     params = make_params(seed=1)
     tckpt.save_model_hdf5(params, str(tmp_path / "m"), 1)
-    loaded = tckpt.load_model_hdf5(str(tmp_path / "m"), 1)
+    loaded = tckpt.load_model_hdf5(str(tmp_path / "m"), 1, CPU)
     for a, b in zip(params, loaded):
         assert b.dtype == torch.float32
         assert torch.equal(a, b)
-    loaded64 = tckpt.load_model_hdf5(str(tmp_path / "m"), 1, dtype=torch.float64)
+    loaded64 = tckpt.load_model_hdf5(str(tmp_path / "m"), 1, CPU, dtype=torch.float64)
     assert loaded64.word_reprs.dtype == torch.float64
     assert loaded64.transform_b.shape == (5,)
 
@@ -82,29 +87,68 @@ def test_port_reads_jax_written_files(tmp_path):
     np_params = as_numpy(make_params(seed=2))
     prefix = str(tmp_path / "jax")
     jckpt.save_model_hdf5(JModelParams(*np_params), prefix, 4)
-    loaded = tckpt.load_model_hdf5(prefix, 4)
+    loaded = tckpt.load_model_hdf5(prefix, 4, CPU)
     for a, b in zip(np_params, loaded):
         np.testing.assert_array_equal(b.numpy(), a)
 
 
-def test_port_rejects_chunked_and_filtered_files(tmp_path):
-    rng = np.random.RandomState(0)
-    big = JModelParams(
-        rng.randn(8192, 4).astype(np.float32), rng.randn(9, 3).astype(np.float32),
+def _chunked_jax_file(tmp_path, word_rows, entity_rows, seed=0):
+    rng = np.random.RandomState(seed)
+    params = JModelParams(
+        rng.randn(word_rows, 4).astype(np.float32), rng.randn(entity_rows, 3).astype(np.float32),
         rng.randn(4, 3).astype(np.float32), rng.randn(3).astype(np.float32),
     )
-    jckpt.save_model_hdf5(big, str(tmp_path / "big"), 1)  # chunked by the JAX writer
-    with pytest.raises(ValueError, match="chunked"):
-        tckpt.load_model_hdf5(str(tmp_path / "big"), 1)
+    prefix = str(tmp_path / f"big{word_rows}")
+    jckpt.save_model_hdf5(params, prefix, 1)  # chunked by the JAX writer
+    return params, prefix
+
+
+def _chunk_btree_levels(path, name):
+    """Levels of the chunk B-tree of dataset ``name``: its root's level + 1."""
+    with open(path, "rb") as f:
+        r = hdf5._Reader(f)
+        root = r.messages(int.from_bytes(r.read(64, 8), "little"))
+        btree, heap = np.frombuffer(root[hdf5.MSG_SYMBOL_TABLE][1][:16], "<u8")
+        layout = r.messages(r.group_entries(int(btree), int(heap))[name])[hdf5.MSG_LAYOUT][1]
+        assert layout[:2] == b"\x03\x02"
+        return r.read(int.from_bytes(layout[3:11], "little"), 8)[5] + 1
+
+
+def test_port_rejects_chunked_and_filtered_files(tmp_path):
+    """A chunked file of the JAX writer is read bitwise; filtered files and
+    later superblocks are still refused."""
+    big, prefix = _chunked_jax_file(tmp_path, 8192, 9)
+    with h5py.File(tckpt.checkpoint_path(prefix, 1), "r") as f:
+        assert f[tckpt.WORD_REPRS].chunks == (2048, 4)
+    for a, b in zip(big, tckpt.load_model_hdf5(prefix, 1, CPU)):
+        assert b.dtype == torch.float32
+        np.testing.assert_array_equal(b.numpy().view(np.uint32), a.view(np.uint32))
     with h5py.File(tmp_path / "z_1.hdf5", "w") as f:
         for name in NAMES:
             f.create_dataset(name, data=np.ones((4, 3), np.float32), compression="gzip")
     with pytest.raises(ValueError, match="filtered"):
-        tckpt.load_model_hdf5(str(tmp_path / "z"), 1)
+        tckpt.load_model_hdf5(str(tmp_path / "z"), 1, CPU)
     with h5py.File(tmp_path / "l_1.hdf5", "w", libver="latest") as f:
         f.create_dataset(tckpt.BIAS, data=np.ones((1, 3), np.float32))
     with pytest.raises(ValueError, match="superblock version"):
-        tckpt.load_model_hdf5(str(tmp_path / "l"), 1)
+        tckpt.load_model_hdf5(str(tmp_path / "l"), 1, CPU)
+
+
+@pytest.mark.parametrize("word_rows,entity_rows,levels", [
+    (8192, 8193, 1),  # four chunks, and five with a padded edge chunk
+    (286720, 10001, 2),  # 140 chunks: more than one node of 64 holds
+    (131073, 12345, 2),  # 65 chunks, the last one row
+])
+def test_port_reads_chunked_jax_files(tmp_path, word_rows, entity_rows, levels):
+    want, prefix = _chunked_jax_file(tmp_path, word_rows, entity_rows, seed=word_rows)
+    path = tckpt.checkpoint_path(prefix, 1)
+    assert _chunk_btree_levels(path, tckpt.WORD_REPRS) == levels
+    got = tckpt.load_model_hdf5(prefix, 1, CPU)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(b.numpy().view(np.uint32), a.view(np.uint32))
+    with h5py.File(path, "r") as f:
+        for name, b in zip(NAMES, got):
+            np.testing.assert_array_equal(f[name][()].reshape(b.shape), b.numpy())
 
 
 def test_overwrite_guard(tmp_path):
@@ -113,7 +157,7 @@ def test_overwrite_guard(tmp_path):
     with pytest.raises(FileExistsError):
         tckpt.save_model_hdf5(make_params(seed=4), prefix, 1)
     tckpt.save_model_hdf5(make_params(seed=4), prefix, 1, overwrite=True)
-    assert torch.equal(tckpt.load_model_hdf5(prefix, 1).word_reprs, make_params(seed=4).word_reprs)
+    assert torch.equal(tckpt.load_model_hdf5(prefix, 1, CPU).word_reprs, make_params(seed=4).word_reprs)
     assert sorted(os.listdir(tmp_path)) == ["m_1.hdf5"]
 
 
@@ -132,7 +176,7 @@ def test_reader_rejects_other_datatypes(tmp_path, dtype):
         for name in NAMES:
             f.create_dataset(name, data=np.ones((2, 3), dtype))
     with pytest.raises(ValueError, match="not little-endian float32"):
-        tckpt.load_model_hdf5(str(tmp_path / "x"), 1)
+        tckpt.load_model_hdf5(str(tmp_path / "x"), 1, CPU)
 
 
 META_CASES = {
@@ -268,7 +312,7 @@ class TestAsyncCheckpointWriter:
         # The writer stays usable after a propagated error.
         w.save_model(params, prefix, 2)
         w.close()
-        assert tckpt.load_model_hdf5(prefix, 2) is not None
+        assert tckpt.load_model_hdf5(prefix, 2, CPU) is not None
 
     def test_first_error_kept_and_raised_by_the_next_save(self, tmp_path):
         params = make_params()
@@ -302,7 +346,7 @@ class TestAsyncCheckpointWriter:
         for t in tckpt.state_leaves(params, state):
             t.add_(1)
         w.close()
-        loaded = tckpt.load_model_hdf5(str(tmp_path / "m"), 1)
+        loaded = tckpt.load_model_hdf5(str(tmp_path / "m"), 1, CPU)
         for a, b in zip(before[:4], loaded):
             assert torch.equal(a, b)
         fresh = make_params(seed=0)
@@ -336,7 +380,7 @@ def test_async_writer_snapshots_card_tensors_at_submission(tmp_path):
             t.mul_(2.0)  # in place, as the step does
     w.close()
     for epoch in range(3):
-        loaded = tckpt.load_model_hdf5(str(tmp_path / "m"), epoch)
+        loaded = tckpt.load_model_hdf5(str(tmp_path / "m"), epoch, CPU)
         for a, b in zip(before, loaded):
             assert torch.equal(a * 2.0 ** epoch, b)
 

@@ -4,12 +4,16 @@
 (importing ``cunvsm_tpu`` imports jax); these tests hold the copies to the
 originals: the config dataclasses and enums, the batches that
 ``TextEntitySource`` yields for one seed, corpus building, the synthetic
-corpora, the MAP metric, and the similarity streams (``load_similarities``,
-``SimilaritySource``, ``repeating``, ``zip_sources``).
+corpora, the MAP metric, the similarity streams (``load_similarities``,
+``SimilaritySource``, ``repeating``, ``zip_sources``), the Lemur stoplist
+file, the query stemmers (``data/stemming.py``) and the lexical rankers
+(``query/qlm.py``).  The ``minstd_rand0`` twin (``data/stdrng.py``) is
+held to its original in tests/test_torch_reference_rng.py.
 """
 
 import dataclasses
 import enum
+import os
 
 import numpy as np
 import pytest
@@ -20,16 +24,20 @@ import cunvsm_torch.config as tconfig
 from cunvsm_tpu.data import corpus as jcorpus
 from cunvsm_tpu.data import instances as jinst
 from cunvsm_tpu.data import sources as jsources
+from cunvsm_tpu.data import stemming as jstem
 from cunvsm_tpu.data import synth as jsynth
 from cunvsm_tpu.data import text as jtext
 from cunvsm_tpu.query import metrics as jmetrics
+from cunvsm_tpu.query import qlm as jqlm
 from cunvsm_torch.data import corpus as tcorpus
 from cunvsm_torch.data import instances as tinst
 from cunvsm_torch.data import sources as tsources
+from cunvsm_torch.data import stemming as tstem
 from cunvsm_torch.data import synth as tsynth
 from cunvsm_torch.data import text as ttext
 from cunvsm_torch.io import trec as ttrec
 from cunvsm_torch.query import metrics as tmetrics
+from cunvsm_torch.query import qlm as tqlm
 from tests.torch_parity import twin
 
 torch.set_num_threads(1)
@@ -178,3 +186,68 @@ def test_similarity_streams_match(drop_remainder):
         np.testing.assert_array_equal(a.ids, b.ids)
     with pytest.raises(ValueError):
         tsources.SimilaritySource(ids, w[:3], 5)
+
+
+def test_stoplist_copy_is_the_original():
+    def read(package):
+        root = os.path.dirname(os.path.dirname(os.path.abspath(package.__file__)))
+        with open(os.path.join(root, "resources", "lemur_stoplist.txt"), "rb") as f:
+            return f.read()
+
+    assert read(ttext) == read(jtext)
+    assert len(ttext.lemur_stopwords()) == 418
+
+
+WORDS = (
+    "caresses ponies ties caress cats feed agreed plastered bled motoring sing "
+    "conflated troubled sized hopping tanned falling hissing fizzed failing filing "
+    "happy sky relational conditional rational valenci hesitanci digitizer "
+    "conformabli radicalli differentli vileli analogousli vietnamization "
+    "predication operator feudalism decisiveness hopefulness callousness "
+    "formaliti sensitiviti sensibiliti triplicate formative formalize "
+    "electriciti electrical hopeful goodness revival allowance inference "
+    "airliner gyroscopic adjustable defensible irritant replacement adjustment "
+    "dependent adoption homologou communism activate angulariti homologous "
+    "effective bowdlerize probate rate cease controll roll a is was running "
+    "studies studied flies dying lying agreement universities retrieval"
+).split()
+
+
+def test_stemmer_copies_match():
+    assert [tstem.porter_stem(w) for w in WORDS] == [jstem.porter_stem(w) for w in WORDS]
+    assert [tstem.krovetz_candidates(w) for w in WORDS] == [
+        jstem.krovetz_candidates(w) for w in WORDS]
+    vocab = sorted({jstem.porter_stem(w) for w in WORDS[::2]} | set(WORDS[1::3]))
+    for name in ("porter", "krovetz", None):
+        t, j = tstem.QueryStemmer(name, vocab), jstem.QueryStemmer(name, vocab)
+        assert t.name == j.name
+        assert t.stem_tokens(WORDS) == j.stem_tokens(WORDS)
+    for module in (tstem, jstem):
+        with pytest.raises(ValueError, match="unknown stemmer"):
+            module.QueryStemmer("arabic")
+
+
+def test_query_stemmer_sidecar_matches(tmp_path):
+    vocab = ["run", "studi", "fli"]
+    for content in (None, "porter\n", "arabic\n"):
+        prefix = str(tmp_path / f"m{content and content.strip()}")
+        if content is not None:
+            with open(f"{prefix}_stemmer.txt", "w") as f:
+                f.write(content)
+        t, j = tstem.load_query_stemmer(prefix, vocab), jstem.load_query_stemmer(prefix, vocab)
+        assert t.name == j.name
+        assert t.stem_tokens(WORDS) == j.stem_tokens(WORDS)
+
+
+def test_qlm_copies_rank_the_same():
+    j, t = _both_corpora(window=1)
+    jidx, tidx = jqlm.build_qlm_index(j), tqlm.build_qlm_index(t)
+    assert tidx.docnos == jidx.docnos
+    queries = {f"q{i}": [f"w{(i * 5 + k) % 23}" for k in range(3)] for i in range(6)}
+    queries["oov"] = ["zzz"]
+    for q, terms in queries.items():
+        assert tqlm.tfidf_rank(tidx, terms, 7) == jqlm.tfidf_rank(jidx, terms, 7)
+    for kw in (dict(smoothing="jm"), dict(smoothing="dirichlet", param=50.0),
+               dict(smoothing="jm", prf=True, fb_docs=3, fb_terms=4)):
+        assert tqlm.qlm_rank(tidx, queries, top_k=9, **kw) == \
+            jqlm.qlm_rank(jidx, queries, top_k=9, **kw)

@@ -5,8 +5,9 @@ hygiene.
   (its own copy of the generator, the same configuration) lowers the cost
   and ranks same-topic documents first (MAP > 0.8);
 * ``QueryEngine.rank`` returns the JAX engine's ranking on the same tables;
-* ``cunvsm_torch`` imports neither jax nor ``cunvsm_tpu``, h5py nor
-  protobuf.
+* ``cunvsm_torch`` (its command-line entry points included) imports
+  neither jax nor ``cunvsm_tpu``, h5py nor protobuf, and a run of both
+  commands opens no file of the JAX package.
 """
 
 import os
@@ -131,6 +132,36 @@ def test_rank_matches_jax_engine(trained, nonlinearity, bias, self_info):
         assert [d for d, _ in tr[q]] == [d for d, _ in jr[q]]
 
 
+@pytest.mark.parametrize("score_dtype", ["float32", "bfloat16"])
+def test_engine_surface_matches_jax_engine(trained, score_dtype):
+    """infer, score_documents (held to rank's scores as JAX holds them),
+    related_terms and term_similarity on the same tables."""
+    corpus, _, _, result = trained
+    np_params = params_to_numpy(result.params)
+    j = JQueryEngine(JModelParams(*(jnp.asarray(x) for x in np_params)), corpus.vocab.terms,
+                     corpus.docnos, score_dtype=getattr(jnp, score_dtype))
+    t = QueryEngine(params_from_numpy(np_params), corpus.vocab.terms, corpus.docnos,
+                    score_dtype=getattr(torch, score_dtype))
+    query = ["rocket", "oven", "goal"]
+    r = t.query_representation(query)
+    np.testing.assert_allclose(t.infer(r), j.infer(j.query_representation(query)), rtol=1e-6)
+    docnos = corpus.docnos[::2] + ["not-a-docno"]
+    ts, js = t.score_documents(query, docnos), j.score_documents(query, docnos)
+    assert [d for d, _ in ts] == [d for d, _ in js] and len(ts) == len(corpus.docnos[::2])
+    np.testing.assert_allclose([s for _, s in ts], [s for _, s in js], rtol=0, atol=1e-6)
+    ranked = dict(t.rank({"q": query}, top_k=len(corpus.docnos))["q"])
+    np.testing.assert_allclose([s for _, s in ts], [ranked[d] for d, _ in ts], rtol=0, atol=1e-6)
+    assert t.score_documents(["not-a-term"], docnos) is None
+    assert t.score_documents(query, ["not-a-docno"]) == []
+    for term in ("rocket", "butter", "not-a-term"):
+        tr, jr = t.related_terms(term, k=5), j.related_terms(term, k=5)
+        assert [w for w, _ in tr] == [w for w, _ in jr]
+        np.testing.assert_allclose([s for _, s in tr], [s for _, s in jr], rtol=1e-6)
+    assert t.term_similarity("rocket", "orbit") == pytest.approx(
+        j.term_similarity("rocket", "orbit"), rel=1e-6)
+    assert t.term_similarity("rocket", "not-a-term") is None
+
+
 def test_batch_from_numpy():
     docs, _ = synthetic_corpus(2)
     corpus = build_corpus(docs, DataConfig(max_vocabulary_size=0, min_document_frequency=0,
@@ -163,13 +194,14 @@ def test_port_never_imports_jax():
         f"bad = sorted(m for m in set(sys.modules) - before\n"
         f"             if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
         "assert not bad, bad\n"
+        "assert {'cunvsm_torch.cli.train', 'cunvsm_torch.cli.query'} <= set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('cunvsm_torch')]))\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    assert int(out.stdout.split()[-1]) >= 30
 
 
 def test_port_sources_name_no_jax_import():
@@ -193,3 +225,40 @@ def test_port_sources_name_no_jax_import():
             for name in names:
                 allowed = name.split(".")[0] == "triton" and path.endswith("triton_build.py")
                 assert allowed or not _forbidden(name), (path, name)
+
+
+def test_commands_open_no_file_of_the_jax_package(tmp_path):
+    """Both commands, run in a fresh interpreter with an audit hook on
+    ``open``, read no file under ``cunvsm_tpu/`` (the stoplist is the
+    port's own copy) and load no forbidden package."""
+    corpus = tmp_path / "docs.jsonl"
+    docs, _ = synthetic_corpus(num_docs_per_topic=2, doc_len=12)
+    corpus.write_text("".join(f'{{"id": "{d}", "text": "{t}"}}\n' for d, t in docs))
+    topics = tmp_path / "topics.txt"
+    topics.write_text("1;rocket orbit\n2;oven flour\n")
+    prefix, run = str(tmp_path / "m"), str(tmp_path / "run")
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "opened = []\n"
+        "sys.addaudithook(lambda e, a: opened.append(str(a[0])) if e == 'open' else None)\n"
+        "from cunvsm_torch.cli import query, train\n"
+        f"assert train.main([{str(corpus)!r}, '--output', {prefix!r}, '--device', 'cpu',\n"
+        "    '--update_method', 'full_adam', '--nonlinearity', 'tanh', '--seed', '1',\n"
+        "    '--num_epochs', '1', '--window_size', '4', '--batch_size', '8',\n"
+        "    '--stopwords', 'lemur', '--min_document_frequency', '0',\n"
+        "    '--max_document_frequency', '0']) == 0\n"
+        f"assert query.main(['--topics', {str(topics)!r}, '--model', {prefix!r}, '--epoch', '1',\n"
+        f"    '--device', 'cpu', '--stopwords', 'lemur', {run!r}]) == 0\n"
+        "bad = [p for p in opened if 'cunvsm_tpu' in p]\n"
+        "assert not bad, bad\n"
+        "assert any(p.endswith('lemur_stoplist.txt') for p in opened)\n"
+        f"bad = sorted(m for m in set(sys.modules) - before\n"
+        f"             if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert os.path.exists(run)

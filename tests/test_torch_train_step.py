@@ -261,8 +261,24 @@ def test_full_adam_layouts_on_card_match_cpu(cuda, layout):
 
 
 def test_reference_rng_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 5"):
-        tstep.make_train_step(DESCS["nvsm"], train_config(reference_rng=True), "cpu", None)
+    """ROADMAP item 5 is ported: under reference_rng the step scores the
+    batch's host-drawn negatives, as the JAX step does, with no generator;
+    three steps of both packages agree to rtol 1e-10."""
+    desc, cfg = DESCS["nvsm"], train_config(reference_rng=True)
+    jrun = jstep.make_train_step(twin(desc), twin(cfg), jit=False)
+    trun = tstep.make_train_step(desc, cfg, "cpu", None)
+    jparams, tparams = both_params(numpy_params(61))
+    jstate, tstate = jupd.Optimizer(twin(cfg)).init(jparams), tupd.Optimizer(cfg).init(tparams)
+    rng = np.random.RandomState(62)
+    for i in range(3):
+        jb, tb = both_batches(numpy_batch(63 + i))
+        negatives = rng.randint(0, N, (B, K)).astype(np.int32)
+        jb = jb._replace(negatives=jnp.asarray(negatives))
+        tb = tb._replace(negatives=torch.from_numpy(negatives).long())
+        jparams, jstate, jc = jrun(jparams, jstate, jb, jax.random.PRNGKey(i))
+        np.testing.assert_allclose(float(trun(tparams, tstate, tb)), float(jc), rtol=1e-10)
+    for j, t in zip(jparams, tparams):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-10, atol=1e-13)
 
 
 def test_sampled_step_draws_in_range_and_trains():

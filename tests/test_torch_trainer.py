@@ -13,7 +13,9 @@
 * on-device epochs train every full batch once: a K that does not divide
   the epoch adds one remainder call, a K larger than the epoch is clamped;
 * the JAX trainer's guards raise ValueError, and the options this package
-  does not have raise NotImplementedError naming their ROADMAP item.
+  does not have raise NotImplementedError naming their ROADMAP item
+  (compute_initial_cost, profile_dir and check_gradients have their own
+  tests in tests/test_torch_trainer_options.py).
 """
 
 import logging
@@ -103,7 +105,7 @@ def test_checkpoint_files(tmp_path, on_device):
         # The writer has finished this epoch's file before the callback.
         same = None
         if os.path.exists(tckpt.checkpoint_path(prefix, epoch)):
-            loaded = tckpt.load_model_hdf5(prefix, epoch)
+            loaded = tckpt.load_model_hdf5(prefix, epoch, CPU)
             same = all(torch.equal(a, b) for a, b in zip(params, loaded))
         seen.append((epoch, same, cost))
 
@@ -115,7 +117,7 @@ def test_checkpoint_files(tmp_path, on_device):
                      "m_resume.npz", "m_vocab.txt"]
     assert [s[:2] for s in seen] == [(1, None), (2, True), (3, True)]
     assert [s[2] for s in seen] == result.epoch_costs
-    loaded = tckpt.load_model_hdf5(prefix, 3)
+    loaded = tckpt.load_model_hdf5(prefix, 3, CPU)
     for a, b in zip(result.params, loaded):
         assert torch.equal(a, b)
     want = jckpt.build_metadata(
@@ -230,9 +232,6 @@ def test_jax_guards_raise_value_error(kwargs, config, match):
     ("mesh", object(), "item 8"),
     ("shard_corpus", True, "item 8"),
     ("stratify_data_groups", 2, "item 8"),
-    ("check_gradients", True, "item 7"),
-    ("profile_dir", "trace", "item 7"),
-    ("compute_initial_cost", True, "item 7"),
 ])
 def test_unported_options_raise(option, value, item):
     kwargs = {option: value}

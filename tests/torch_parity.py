@@ -224,7 +224,8 @@ def batch_to(batch, device, dtype):
     if not hasattr(batch, "_fields"):
         return tuple(batch_to(b, device, dtype) for b in batch)
     return type(batch)(*(
-        t.to(device, dtype) if t.dtype.is_floating_point else t.to(device) for t in batch
+        t if t is None else t.to(device, dtype) if t.dtype.is_floating_point else t.to(device)
+        for t in batch
     ))
 
 
