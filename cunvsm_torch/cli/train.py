@@ -137,7 +137,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "streams at half width with float32 masters.")
     p.add_argument("--accum_dtype", default="float32", choices=("float32", "bfloat16"),
                    help="Accumulator width of the full_adam dense segment "
-                        "accumulation (bfloat16 is not ported yet).")
+                        "accumulation (bfloat16: half-precision partial "
+                        "sums).")
     p.add_argument("--shared_negatives", action="store_true",
                    help="Batch-shared negative sampling (requires sgd or "
                         "full_adam).")

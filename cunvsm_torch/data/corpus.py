@@ -124,14 +124,6 @@ class Corpus:
         )
 
 
-def is_indri_repository(path: str) -> bool:
-    """A directory with a ``manifest`` file and an ``index`` directory, as
-    ``cunvsm_tpu.data.indri.is_indri_repository`` recognizes one."""
-    return os.path.isdir(path) and os.path.isfile(
-        os.path.join(path, "manifest")
-    ) and os.path.isdir(os.path.join(path, "index"))
-
-
 def build_corpus(
     docs: Iterable[Tuple[str, str]],
     cfg: DataConfig,
@@ -195,21 +187,17 @@ def load_corpus(
     cfg: DataConfig,
     window_size: int,
     stopword_path: Optional[str] = None,
+    use_native: bool = True,
 ) -> Corpus:
     """End-to-end corpus load from cfg.corpus_path.
 
-    A ``.npz`` path loads a packed corpus previously written with
-    ``Corpus.save`` (no re-tokenization); TRECTEXT and JSONL go through the
-    pure-Python pipeline.  The JAX package's Indri-repository reader and its
-    C++ ingestion library are not part of this package yet: an Indri
-    repository raises ``NotImplementedError`` rather than being read as
-    text files.
+    Uses the C++ ingestion library (csrc/corpus.cpp, csrc/indri.cpp; built
+    with g++ at first use, data/native.py) for an Indri repository and for
+    a single TRECTEXT file without a document list; falls back to the
+    pure-Python pipeline where it does not build (with a logged warning) or
+    with ``use_native=False``.  A ``.npz`` path loads a packed corpus
+    previously written with ``Corpus.save`` (no re-tokenization).
     """
-    if is_indri_repository(cfg.corpus_path):
-        raise NotImplementedError(
-            f"{cfg.corpus_path} is an Indri repository; the Indri reader is not "
-            "ported yet (ROADMAP.md queue 1, item 7, data/indri.py)"
-        )
     if cfg.corpus_path.endswith(".npz"):
         packed = Corpus.load(cfg.corpus_path)
         if packed.window_size != window_size:
@@ -218,6 +206,46 @@ def load_corpus(
                 f"{packed.window_size}, requested {window_size}"
             )
         return packed
+
+    from cunvsm_torch.data.indri import (
+        build_corpus_from_indri,
+        is_indri_repository,
+    )
+
+    if is_indri_repository(cfg.corpus_path):
+        if use_native:
+            from cunvsm_torch.data import native
+
+            if native.available():
+                return native.build_corpus_native_indri(
+                    cfg.corpus_path, cfg, window_size
+                )
+        document_list = None
+        if cfg.document_list:
+            with open(cfg.document_list) as f:
+                document_list = [line.strip() for line in f if line.strip()]
+        blacklist = None
+        if cfg.term_blacklist:
+            with open(cfg.term_blacklist) as f:
+                blacklist = frozenset(
+                    line.strip().lower() for line in f if line.strip()
+                )
+        return build_corpus_from_indri(
+            cfg.corpus_path, cfg, window_size,
+            document_list=document_list, term_blacklist=blacklist,
+        )
+    if (
+        use_native
+        and os.path.isfile(cfg.corpus_path)
+        and not cfg.corpus_path.endswith((".jsonl", ".json", ".gz"))
+        and cfg.document_list is None
+    ):
+        from cunvsm_torch.data import native
+
+        if native.available():
+            return native.build_corpus_native(
+                cfg.corpus_path, cfg, window_size, stopword_path
+            )
     stopwords = load_stopwords(stopword_path)
     document_list = None
     if cfg.document_list:

@@ -59,6 +59,25 @@ def nvcc_command(nvcc: str, sources: tuple, out: str) -> list:
     return [nvcc, *NVCC_FLAGS, "-o", out, *(os.path.join(CSRC, s) for s in sources)]
 
 
+def compile_into_place(path: str, command, what: str) -> str:
+    """Run the compiler command ``command(out)`` with ``out`` a temporary
+    name beside ``path`` and move the result to ``path``, so that no
+    process ever loads a half-written library.  Raises ``RuntimeError``
+    with the compiler's errors, leaving nothing behind, if it fails."""
+    directory = os.path.dirname(path)
+    os.makedirs(directory, exist_ok=True)
+    stem = os.path.basename(path).split("-")[0]
+    fd, tmp = tempfile.mkstemp(prefix=f".{stem}-", suffix=".so", dir=directory)
+    os.close(fd)
+    cmd = command(tmp)
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"{cmd[0]} failed to build {what}:\n{proc.stderr}")
+    os.replace(tmp, path)
+    return path
+
+
 def build_library(name: str, sources: tuple) -> str:
     """Compile ``sources`` (file names under ``csrc/``) unless the library
     for their present bytes exists; returns its path."""
@@ -66,15 +85,7 @@ def build_library(name: str, sources: tuple) -> str:
     if os.path.exists(path):
         return path
     nvcc = find_nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(prefix=f".lib{name}-", suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run(nvcc_command(nvcc, sources, tmp), capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed to build {name}:\n{proc.stderr}")
-    os.replace(tmp, path)
-    return path
+    return compile_into_place(path, lambda out: nvcc_command(nvcc, sources, out), name)
 
 
 @functools.lru_cache(maxsize=None)

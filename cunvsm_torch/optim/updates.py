@@ -170,6 +170,7 @@ def _sorted_segment_accumulate(
     num_rows: int,
     descs: Tuple[SparseGrad, ...],
     stream_dtype: Optional[torch.dtype] = None,
+    accum_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """S[v] = sum over (i, w) with indices[i, w] == v of weights[i, w] * grad[i].
 
@@ -178,9 +179,14 @@ def _sorted_segment_accumulate(
     at stream width, and widened to the gradient dtype before the sum
     (``_finish`` in the JAX package).  Each window slot adds its B rows
     with one ``index_add_``, so the [B*W, d] update stream is never
-    materialized.
+    materialized.  Under an ``accum_dtype`` the weighted rows are cast to
+    it and summed into an accumulator of that dtype, which is returned as
+    it is (the consumer widens): with bfloat16 the partial sums round, to
+    a relative error of about 2^-9 * sqrt(updates per row), and on a CUDA
+    device, where ``index_add_`` adds in no fixed order, two runs of one
+    step may differ in the accumulator's last bit.
     """
-    out_dtype = descs[0].grad.dtype
+    out_dtype = accum_dtype or descs[0].grad.dtype
     out = torch.zeros(
         (num_rows, descs[0].grad.shape[1]), dtype=out_dtype,
         device=descs[0].grad.device,
@@ -302,11 +308,15 @@ def _repr_adam_dense_update(state: ReprAdamState, table, descs, lr, lam, beta1, 
 
 
 def _repr_adam_full(
-    state: ReprAdamState, table, descs, lr, lam, beta1, beta2, eps, stream_dtype=None
+    state: ReprAdamState, table, descs, lr, lam, beta1, beta2, eps, stream_dtype=None,
+    accum_dtype=None,
 ):
     # DENSE_UPDATE_DENSE_VARIANCE (updates_adam.cu:203-213,253-282,312-328):
-    # one dense accumulation feeds both moments, then one fused sweep.
-    scattered = _sorted_segment_accumulate(table.shape[0], tuple(descs), stream_dtype)
+    # one dense accumulation feeds both moments, then one fused sweep.  A
+    # narrower accumulator is widened here, before the sweep reads it.
+    scattered = _sorted_segment_accumulate(
+        table.shape[0], tuple(descs), stream_dtype, accum_dtype
+    ).to(table.dtype)
     bc = _adam_bias_correction(beta1, beta2, state.t, table.dtype)
     fused_adam_dense_sweep(
         table, state.m, state.v, scattered, lr * bc,
@@ -333,13 +343,11 @@ class Optimizer:
     SPARSE, DENSE_UPDATE and DENSE_UPDATE_DENSE_VARIANCE modes."""
 
     def __init__(self, cfg: TrainConfig):
-        if _is_full_adam(cfg) and cfg.accum_dtype != "float32":
-            raise NotImplementedError(
-                "accum_dtype other than float32 is not ported yet (ROADMAP.md queue 1, item 7)"
-            )
         self.cfg = cfg
         stream = cfg.resolved_stream_dtype()
         self.stream_dtype = None if stream is None else getattr(torch, stream)
+        accum = cfg.resolved_accum_dtype()
+        self.accum_dtype = None if accum is None else getattr(torch, accum)
 
     def init(self, params: ModelParams) -> OptState:
         method = self.cfg.update_method
@@ -424,4 +432,4 @@ class Optimizer:
         elif cfg.adam.mode == AdamMode.DENSE_UPDATE:
             _repr_adam_dense_update(*args)
         else:
-            _repr_adam_full(*args, stream_dtype=self.stream_dtype)
+            _repr_adam_full(*args, stream_dtype=self.stream_dtype, accum_dtype=self.accum_dtype)

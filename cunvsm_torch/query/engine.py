@@ -21,6 +21,7 @@ then the optional tanh; scores are cosine similarities.
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -88,9 +89,11 @@ class QueryEngine:
         self.l2norm_phrase = l2norm_phrase
         # Snapshots, like the JAX engine's immutable arrays: training that
         # goes on in place does not change a built engine.
+        # (A CPU tensor's ``.numpy()`` shares its memory, hence the copy.)
         self.transform_w = params.transform_w.detach().clone()
-        self._word_reprs_np = params.word_reprs.detach().cpu().numpy()
-        self._bias_scaled = bias_coefficient * params.transform_b
+        self.transform_b = params.transform_b.detach().clone()
+        self._word_reprs_np = params.word_reprs.detach().cpu().numpy().copy()
+        self._bias_scaled = bias_coefficient * self.transform_b
         entity = params.entity_reprs.to(torch.float32)
         norms = torch.linalg.vector_norm(entity, dim=1, keepdim=True)
         self._entity_norm = (entity / torch.clamp(norms, min=1e-30)).to(
@@ -211,6 +214,85 @@ class QueryEngine:
         va = self._word_reprs_np[self.term_to_id[a]]
         vb = self._word_reprs_np[self.term_to_id[b]]
         return float(va @ vb / (np.linalg.norm(va) * np.linalg.norm(vb) + 1e-30))
+
+
+class TermBruteforcer:
+    """Inverse n-gram lookup: which term combinations project nearest to a
+    given document-space vector (py/nvsm/base.py:106-162).
+
+    Cardinality 1 covers the whole vocabulary, like the reference's brute
+    force over every 1-gram: the word table goes through the transform in
+    one [V, d_w] product on the engine's device, and a lookup is one
+    [N, d_e] x [d_e] product and ``torch.topk`` there.  Cardinality >= 2
+    grows combinatorially, so those combinations draw from a term universe
+    capped at ``max_terms`` by collection frequency.  ``chip_smoke.py``
+    (phase G3) prints the build and lookup times at V 65536, 300 -> 256
+    with the card's name and power limit.
+    """
+
+    def __init__(
+        self,
+        engine: QueryEngine,
+        max_ngram_cardinality: int = 1,
+        max_terms: int = 4096,
+    ):
+        self.engine = engine
+        w = engine._word_reprs_np
+        # Full-vocabulary 1-grams, in model-id order.
+        id_to_term = {i: t for t, i in engine.term_to_id.items()}
+        vocab_ids = sorted(id_to_term)
+        self.ngrams: List[tuple] = [(id_to_term[i],) for i in vocab_ids]
+        reprs = [w[np.asarray(vocab_ids, dtype=np.int64)]]
+        if max_ngram_cardinality >= 2:
+            # Cap the cardinality>=2 term universe by collection frequency
+            # (the terms a user would expect an inverse lookup to cover),
+            # falling back to alphabetical order without frequencies.
+            if engine.term_frequencies is not None:
+                ranked = sorted(
+                    engine.term_to_id,
+                    key=lambda t: (
+                        -int(engine.term_frequencies[engine.term_to_id[t]]),
+                        t,
+                    ),
+                )
+            else:
+                ranked = sorted(engine.term_to_id)
+            terms = ranked[:max_terms]
+            term_ids = np.asarray([engine.term_to_id[t] for t in terms], dtype=np.int64)
+            for k in range(2, max_ngram_cardinality + 1):
+                # itertools.combinations' order; the mean of each
+                # combination's rows, taken for all of them at once.
+                combos = np.asarray(
+                    list(itertools.combinations(range(len(terms)), k)), dtype=np.int64
+                ).reshape(-1, k)
+                if not len(combos):
+                    continue
+                self.ngrams.extend(tuple(terms[j] for j in c) for c in combos.tolist())
+                reprs.append(w[term_ids[combos]].mean(axis=1))
+        all_reprs = torch.as_tensor(
+            np.concatenate(reprs, axis=0),
+            dtype=engine.transform_w.dtype, device=engine.transform_w.device,
+        )
+        # One projection of every n-gram representation; the normalized
+        # [N, d_e] table stays on the engine's device for the lookups.
+        self._projected_norm = _project_queries(
+            all_reprs, engine.transform_w, engine._bias_scaled, engine.nonlinearity
+        )
+
+    def nearest_ngrams(self, target: np.ndarray, k: int = 10):
+        """Top-k n-grams whose projections are cosine-nearest to ``target``
+        (a document-space vector, e.g. a document representation)."""
+        t = np.asarray(target, dtype=np.float32)
+        t = t / max(float(np.linalg.norm(t)), 1e-30)
+        table = self._projected_norm
+        scores, idx = torch.topk(
+            table @ torch.as_tensor(t, dtype=table.dtype, device=table.device),
+            min(k, len(self.ngrams)),
+        )
+        return [
+            (self.ngrams[int(i)], float(s))
+            for i, s in zip(idx.cpu().numpy(), scores.cpu().numpy())
+        ]
 
 
 def load_query_engine(prefix: str, epoch, device, **kwargs) -> QueryEngine:

@@ -364,27 +364,6 @@ def test_snapshot_keeps_the_named_tuples():
         assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()
 
 
-@pytest.mark.cuda
-def test_async_writer_snapshots_card_tensors_at_submission(tmp_path):
-    """On the card the clone is enqueued on the training stream and the
-    worker copies it to the host on its own stream after an event."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU")
-    params = make_params(rows=4096, entities=8192, seed=10)
-    params = type(params)(*(t.cuda() for t in params))
-    before = [t.cpu() for t in params]
-    w = tckpt.AsyncCheckpointWriter()
-    for epoch in range(3):
-        w.save_model(params, str(tmp_path / "m"), epoch)
-        for t in params:
-            t.mul_(2.0)  # in place, as the step does
-    w.close()
-    for epoch in range(3):
-        loaded = tckpt.load_model_hdf5(str(tmp_path / "m"), epoch, CPU)
-        for a, b in zip(before, loaded):
-            assert torch.equal(a * 2.0 ** epoch, b)
-
-
 def _state_of(name, seed):
     cfg = optimizer_config(name)
     params = make_params(seed=seed)

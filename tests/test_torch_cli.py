@@ -11,8 +11,8 @@ package's ``cunvsm-train`` and ``cunvsm-query``, on the CPU.
   stemmers and the query-side options;
 * ``python -m cunvsm_torch.cli.train`` and ``.query`` run as modules;
 * the refusals: ``--seed 0`` exits 1, the multi-device flags raise
-  ``NotImplementedError`` naming item 8, an Indri repository item 7, and
-  ``--device cuda`` fails without a card.
+  ``NotImplementedError`` naming item 8, and ``--device cuda`` fails
+  without a card.
 """
 
 import json
@@ -201,34 +201,6 @@ def test_query_mesh_names_item_8(models, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8"):
         tquery.main(["--topics", topics, "--model", prefix, "--epoch", "1", "--mesh", "1x2",
                      "--device", "cpu", str(tmp_path / "run")])
-
-
-def test_indri_repository_names_item_7(tmp_path):
-    repo = tmp_path / "indri"
-    (repo / "index" / "0").mkdir(parents=True)
-    (repo / "manifest").write_text("<parameters></parameters>\n")
-    with pytest.raises(NotImplementedError, match="Indri reader .*item 7"):
-        ttrain.main([str(repo), "--output", str(tmp_path / "x"), "--device", "cpu",
-                     *[f for f in TRAIN_FLAGS if f != "--reference_rng"]])
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("score_dtype", ["float32", "bfloat16"])
-def test_query_command_on_card_matches_cpu(cuda, models, tmp_path, score_dtype):
-    _, prefix = models
-    topics = _topics(tmp_path, "topics.txt", QUERIES)
-    common = ["--topics", topics, "--model", prefix, "--epoch", str(EPOCHS),
-              "--score_dtype", score_dtype]
-    for device in ("cpu", "cuda"):
-        assert tquery.main([*common, "--device", device, str(tmp_path / device)]) == 0
-    _assert_same_runs(read_run(str(tmp_path / "cpu")), read_run(str(tmp_path / "cuda")))
 
 
 def test_device_cuda_without_a_card_fails(corpus_file, models, tmp_path):

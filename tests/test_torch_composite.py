@@ -29,7 +29,7 @@ from cunvsm_torch.models import objectives as tobj
 from cunvsm_torch.optim import updates as tupd
 from cunvsm_torch.train import step as tstep
 from tests.torch_parity import (
-    B, D_E, D_W, DESCS, N, V, assert_card_steps_match_cpu, assert_same_training, both_batches,
+    B, D_E, D_W, DESCS, N, V, assert_same_training, both_batches,
     both_params, jax_draws, numpy_batch, numpy_params, optimizer_config, run_both_steps,
     train_config, twin,
 )
@@ -146,27 +146,6 @@ def test_reported_and_optimized_costs_match_jax(composite):
     np.testing.assert_allclose(optimized, (w_te * float(te) + w_sim * float(sim)) / (w_te + w_sim),
                                rtol=1e-14)
     assert abs(reported - optimized) > 1e-3
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("composite", sorted(COMPOSITES))
-def test_composite_steps_on_card_match_cpu(cuda, composite):
-    """full_adam on the rolled pool: the sweep and, under the default
-    float32 streams, no cast."""
-    kind, weights, rows = COMPOSITES[composite]
-    cfg = optimizer_config("full_adam", negative_pool_size=8, **weights)
-    batches = composite_batches(77, rows, weighted=True)
-    ids = [jax_draws(twin(cfg), twin(DESCS["lse"]), jax.random.PRNGKey(i), jb[0].labels)
-           for i, (jb, _) in enumerate(batches)]
-    assert_card_steps_match_cpu(cuda, DESCS["lse"], cfg, [tb for _, tb in batches], ids,
-                                numpy_params(78))
 
 
 FD_DESC = ModelDesc(word_repr_size=D_W, entity_repr_size=D_E, nonlinearity=Nonlinearity.TANH,

@@ -7,7 +7,10 @@ originals: the config dataclasses and enums, the batches that
 corpora, the MAP metric, the similarity streams (``load_similarities``,
 ``SimilaritySource``, ``repeating``, ``zip_sources``), the Lemur stoplist
 file, the query stemmers (``data/stemming.py``) and the lexical rankers
-(``query/qlm.py``).  The ``minstd_rand0`` twin (``data/stdrng.py``) is
+(``query/qlm.py``).  Run fusion, the Indri reader and the three numpy-only
+commands are copies whose text equals the original's once the package's
+name is put in, and the C++ ingestion sources under ``csrc/`` equal
+``native/`` byte for byte.  The ``minstd_rand0`` twin (``data/stdrng.py``) is
 held to its original in tests/test_torch_reference_rng.py.
 """
 
@@ -251,3 +254,32 @@ def test_qlm_copies_rank_the_same():
                dict(smoothing="jm", prf=True, fb_docs=3, fb_terms=4)):
         assert tqlm.qlm_rank(tidx, queries, top_k=9, **kw) == \
             jqlm.qlm_rank(jidx, queries, top_k=9, **kw)
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("module", [
+    "query/fusion.py", "data/indri.py", "cli/combine_runs.py", "cli/dump_vocabulary.py",
+    "cli/extract_reuters.py",
+])
+def test_copied_module_text_is_the_original(module):
+    """The copy is the original with the package's name replaced: the
+    import lines differ by that name only, and nothing else differs but
+    the directory prefix of the citations of the reference's sources."""
+    with open(os.path.join(REPO, "cunvsm_tpu", module)) as f:
+        original = f.read()
+    with open(os.path.join(REPO, "cunvsm_torch", module)) as f:
+        copy = f.read()
+    # (The original cites the reference's sources by an absolute path.)
+    assert copy == original.replace("cunvsm_tpu", "cunvsm_torch").replace(
+        "/" + "root/reference/", "")
+    assert "cunvsm_tpu" not in copy and "jax" not in copy
+
+
+@pytest.mark.parametrize("source", ["corpus.cpp", "indri.cpp", "corpus.h"])
+def test_cpp_source_copy_is_the_original(source):
+    with open(os.path.join(REPO, "native", source), "rb") as f:
+        original = f.read()
+    with open(os.path.join(REPO, "cunvsm_torch", "csrc", source), "rb") as f:
+        assert f.read() == original

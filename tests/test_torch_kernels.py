@@ -157,70 +157,3 @@ def test_dispatch_has_no_fallback(module, names, branch):
     assert branch in inspect.getsource(getattr(module, names[0]))
 
 
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(65536, 300), (262144, 256), (1000, 3)])
-def test_sweep_kernel_matches_plain_on_card(cuda, shape):
-    """Bitwise: the kernel computes the plain version's IEEE operations in
-    its order (``_rn`` division and square root, no FMA contraction).  Half
-    the gradient rows are zero, so there agg is the L2 term alone, and v is
-    of the order of s**2: a kernel that drops lam or never stores v' fails."""
-    g = torch.Generator(device=cuda).manual_seed(0)
-    s = torch.randn(shape, device=cuda, generator=g) * 1e-3
-    s[shape[0] // 2:] = 0.0
-    m = torch.randn(shape, device=cuda, generator=g) * 1e-4
-    v = torch.rand(shape, device=cuda, generator=g) * 2e-6
-    p = (torch.rand(shape, device=cuda, generator=g) - 0.5) * 0.2
-    scale = torch.tensor(3e-5, device=cuda)
-    ref = [t.clone() for t in (p, m, v)]
-    no_l2 = [t.clone() for t in (p, m, v)]
-    adam_sweep.sweep_plain(*ref, s, scale, **HYPER)
-    adam_sweep.sweep_plain(*no_l2, s, scale, **{**HYPER, "lam": 0.0})
-    for before, after in zip((p, m, v), ref):
-        assert not torch.equal(before, after)
-    assert not torch.equal(ref[0], no_l2[0]) and not torch.equal(ref[1], no_l2[1])
-    before = adam_sweep.fused_adam_dense_sweep.launches
-    adam_sweep.fused_adam_dense_sweep(p, m, v, s, scale, **HYPER)
-    torch.cuda.synchronize()
-    assert adam_sweep.fused_adam_dense_sweep.launches == before + 1
-    for r, t in zip(ref, (p, m, v)):
-        assert torch.equal(t, r)
-
-
-def _card_cast_operand(case, cuda):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    if case == "edges":
-        bits = torch.randint(-2**31, 2**31, (4097,), device=cuda, generator=g,
-                             dtype=torch.int64).to(torch.int32)
-        edges = torch.from_numpy(np.concatenate(list(CAST_EDGES.values())).view(np.int32))
-        return torch.cat([edges.to(cuda), bits]).view(torch.float32)
-    if case == "misaligned":
-        return (torch.randn(1001, device=cuda, generator=g) * 1e3)[1:]
-    if case == "misaligned_table":
-        return torch.randn((65536, 300), device=cuda, generator=g).view(-1)[1:]
-    return torch.randn(case, device=cuda, generator=g) * 1e3
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", [(65536, 300), (5, 7), "edges", "misaligned",
-                                  "misaligned_table", 1, 5, 7, 9])
-def test_cast_kernel_bitwise_on_card(cuda, case):
-    """Bitwise ``.to(torch.bfloat16)`` wherever the result is not NaN, and
-    NaN where it is, at the main path's shape, on edge values and random bit
-    patterns, on slices that start one element in (misaligned base, odd n),
-    and for n < 8."""
-    x = _card_cast_operand(case, cuda)
-    before = cast.cast_table.launches
-    y = cast.cast_table(x, torch.bfloat16)
-    torch.cuda.synchronize()
-    assert cast.cast_table.launches == before + 1
-    ref = x.to(torch.bfloat16)
-    nan = torch.isnan(ref)
-    assert torch.equal(torch.isnan(y), nan)
-    assert torch.equal(y.view(torch.int16)[~nan], ref.view(torch.int16)[~nan])

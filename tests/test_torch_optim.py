@@ -229,39 +229,6 @@ def test_helpers_match_jax():
                     tupd._window_mean_gather(torch.from_numpy(arr), torch.from_numpy(idx).long()))
 
 
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", OPTIMIZERS)
-def test_three_steps_on_card_match_cpu(cuda, name):
-    """Three float32 updates on the card (the sweep kernel under full_adam)
-    against the same updates in float64 on the CPU, from the same non-zero
-    state: duplicate indices add in no fixed order on the card, so rtol
-    1e-5 / atol 1e-5 rather than bitwise."""
-    cfg = cfg_for(name)
-    jp = JModelParams(*(jnp.asarray(x) for x in np_params(13)))
-    jstate = nonzero_state(jupd.Optimizer(twin(cfg)).init(jp), 14)
-    results = []
-    for device, dtype in ((cuda, torch.float32), (torch.device("cpu"), torch.float64)):
-        tp = params_from_numpy(np_params(13), device, dtype)
-        state = tupd.opt_state_from_numpy(jstate, device, dtype)
-        for step in range(3):
-            g = port_grads(np_grads(seed=20 + step), device=device, dtype=dtype)
-            tupd.Optimizer(cfg).apply(tp, state, g, 0.5, 0.1)
-        results.append(([to_np(t) for t in tp], tupd.opt_state_to_numpy(state)))
-    (gp, gs), (cp, cs) = results
-    for g, c in zip(gp, cp):
-        np.testing.assert_allclose(g.astype(np.float64), c, rtol=1e-5, atol=1e-5)
-    for g_sub, c_sub in zip(gs, cs):
-        for g, c in zip(g_sub, c_sub):
-            np.testing.assert_allclose(g.astype(np.float64), c, rtol=1e-5, atol=1e-5)
-
-
 @pytest.mark.parametrize("name", OPTIMIZERS)
 def test_opt_state_round_trips_for_every_kind(name):
     jp = JModelParams(*(jnp.asarray(x) for x in np_params()))

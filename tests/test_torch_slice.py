@@ -173,7 +173,10 @@ def test_batch_from_numpy():
     np.testing.assert_array_equal(b.features.numpy(), nb.features)
 
 
-FORBIDDEN = ("jax", "jaxlib", "cunvsm_tpu", "triton", "h5py", "google.protobuf")
+FORBIDDEN = ("jax", "jaxlib", "cunvsm_tpu", "triton", "h5py", "google.protobuf", "sklearn",
+             "matplotlib")
+COMMANDS = ("train", "query", "combine_runs", "dump_vocabulary", "extract_reuters", "visualize")
+NEW_MODULES = ("compat.nvsm", "query.fusion", "data.indri", "data.native")
 
 
 def _forbidden(name: str) -> bool:
@@ -182,9 +185,9 @@ def _forbidden(name: str) -> bool:
 
 def test_port_never_imports_jax():
     """Import every module of the port in a fresh interpreter and check
-    that it loaded neither jax nor the JAX package, nor h5py or protobuf
-    (the card's machine has neither), nor triton, which only a kernel
-    launch imports."""
+    that it loaded neither jax nor the JAX package, nor h5py, protobuf,
+    scikit-learn or matplotlib (the card's machine has none of them), nor
+    triton, which only a kernel launch imports."""
     code = (
         "import importlib, pkgutil, sys\n"
         "before = set(sys.modules)\n"
@@ -194,20 +197,23 @@ def test_port_never_imports_jax():
         f"bad = sorted(m for m in set(sys.modules) - before\n"
         f"             if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
         "assert not bad, bad\n"
-        "assert {'cunvsm_torch.cli.train', 'cunvsm_torch.cli.query'} <= set(sys.modules)\n"
+        f"want = {{'cunvsm_torch.cli.' + c for c in {COMMANDS!r}}}\n"
+        f"want |= {{'cunvsm_torch.' + m for m in {NEW_MODULES!r}}}\n"
+        "assert want <= set(sys.modules), want - set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('cunvsm_torch')]))\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 30
+    assert int(out.stdout.split()[-1]) >= 40
 
 
 def test_port_sources_name_no_jax_import():
     """The same rule read from the sources, which also holds where jax is
     already loaded: no import statement of the port names a forbidden
-    package."""
+    package, but for triton in the kernel launcher's helper and the lazy
+    plotting imports of ``cli/visualize.py``."""
     import ast
 
     root = os.path.join(REPO, "cunvsm_torch")
@@ -223,7 +229,12 @@ def test_port_sources_name_no_jax_import():
             else:
                 continue
             for name in names:
-                allowed = name.split(".")[0] == "triton" and path.endswith("triton_build.py")
+                root_name = name.split(".")[0]
+                allowed = root_name == "triton" and path.endswith("triton_build.py")
+                # The t-SNE mode's packages, imported inside the function that
+                # plots and never when the module is imported.
+                allowed |= (root_name in ("matplotlib", "sklearn") and node not in tree.body
+                            and path.endswith(os.path.join("cli", "visualize.py")))
                 assert allowed or not _forbidden(name), (path, name)
 
 
@@ -262,3 +273,53 @@ def test_commands_open_no_file_of_the_jax_package(tmp_path):
     )
     assert out.returncode == 0, out.stderr
     assert os.path.exists(run)
+
+
+def test_tools_open_no_file_of_the_jax_package(tmp_path):
+    """The remaining commands, the compat API and the C++ reader's build,
+    run in a fresh interpreter with an audit hook on ``open``: no file
+    under ``cunvsm_tpu/`` or ``native/`` is read, and no forbidden package
+    is loaded."""
+    docs, _ = synthetic_corpus(num_docs_per_topic=2, doc_len=12)
+    corpus = tmp_path / "docs.trectext"
+    corpus.write_text("".join(
+        f"<DOC>\n<DOCNO> {d} </DOCNO>\n<TEXT>\n{t}\n</TEXT>\n</DOC>\n" for d, t in docs))
+    prefix = str(tmp_path / "m")
+    code = (
+        "import os, sys\n"
+        "before = set(sys.modules)\n"
+        "opened = []\n"
+        "sys.addaudithook(lambda e, a: opened.append(str(a[0])) if e == 'open' else None)\n"
+        "from cunvsm_torch.cli import combine_runs, dump_vocabulary, query, train, visualize\n"
+        "from cunvsm_torch.compat import nvsm\n"
+        f"prefix, tmp = {prefix!r}, {str(tmp_path)!r}\n"
+        f"assert train.main([{str(corpus)!r}, '--output', prefix, '--device', 'cpu',\n"
+        "    '--update_method', 'full_adam', '--nonlinearity', 'tanh', '--seed', '1',\n"
+        "    '--num_epochs', '1', '--window_size', '4', '--batch_size', '8',\n"
+        "    '--accum_dtype', 'bfloat16', '--min_document_frequency', '0',\n"
+        "    '--max_document_frequency', '0']) == 0\n"
+        "open(tmp + '/topics.txt', 'w').write('1;rocket orbit\\n2;oven flour\\n')\n"
+        "for name, flags in (('a', []), ('b', ['--score_dtype', 'bfloat16'])):\n"
+        "    assert query.main(['--topics', tmp + '/topics.txt', '--model', prefix, '--epoch', '1',\n"
+        "        '--device', 'cpu', *flags, tmp + '/' + name]) == 0\n"
+        "assert combine_runs.main(['--runs', tmp + '/a', tmp + '/b', '--alpha', '0.5',\n"
+        "    '--score_normalizer', 'standardize', tmp + '/fused']) == 0\n"
+        "assert dump_vocabulary.main(['--model', prefix, tmp + '/vocab']) == 0\n"
+        "assert visualize.main(['--model', prefix, '--epoch', '1', '--device', 'cpu',\n"
+        "    '--mode', 'embedding_projector', '--plot_out', tmp + '/p']) == 0\n"
+        "model = nvsm.load_model(nvsm.load_meta(prefix), prefix, 1, device='cpu')\n"
+        "assert model.query([1, 2], top_k=3)\n"
+        "sep = os.sep\n"
+        "bad = [p for p in opened if 'cunvsm_tpu' in p or sep + 'native' + sep + 'corpus' in p\n"
+        "       or p.endswith('native' + sep + 'libcunvsm_native.so')]\n"
+        "assert not bad, bad\n"
+        f"bad = sorted(m for m in set(sys.modules) - before\n"
+        f"             if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    for name in ("fused", "vocab", "p_tensors.tsv", "p_metadata.tsv"):
+        assert os.path.exists(tmp_path / name), name

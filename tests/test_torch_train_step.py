@@ -33,9 +33,8 @@ from cunvsm_torch.config import (
 from cunvsm_torch.optim import updates as tupd
 from cunvsm_torch.train import step as tstep
 from tests.torch_parity import (
-    B, D_E, D_W, DESCS, K, N, assert_card_steps_match_cpu, assert_same_training, both_batches,
-    both_params, jax_draws, jax_train_step, numpy_batch, numpy_params, optimizer_config,
-    run_both_steps, to_np, train_config, twin,
+    B, D_E, D_W, DESCS, K, N, assert_same_training, both_batches, both_params, jax_train_step,
+    numpy_batch, numpy_params, optimizer_config, run_both_steps, to_np, train_config, twin,
 )
 
 torch.set_num_threads(1)
@@ -237,29 +236,6 @@ def test_both_packages_refuse_the_same_negative_layouts(overrides, desc, match):
             jp, jupd.Optimizer(twin(cfg)).init(jp), jb, jax.random.PRNGKey(0))
 
 
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["entity_l2", "shared"])
-def test_full_adam_layouts_on_card_match_cpu(cuda, layout):
-    """The expanded layout under the entity L2 normalizer and the
-    batch-shared GEMM layout, with the sweep kernel on the card."""
-    if layout == "entity_l2":
-        desc, cfg = ENTITY_L2, optimizer_config("full_adam")
-    else:
-        desc, cfg = DESCS["lse"], optimizer_config("full_adam", shared_negatives=True)
-    batches = _batches(51, True)
-    ids = [jax_draws(twin(cfg), twin(desc), jax.random.PRNGKey(i), jb.labels)
-           for i, (jb, _) in enumerate(batches)]
-    assert_card_steps_match_cpu(cuda, desc, cfg, [tb for _, tb in batches], ids,
-                                numpy_params(52))
-
-
 def test_reference_rng_names_its_roadmap_item():
     """ROADMAP item 5 is ported: under reference_rng the step scores the
     batch's host-drawn negatives, as the JAX step does, with no generator;
@@ -295,11 +271,3 @@ def test_sampled_step_draws_in_range_and_trains():
         for _ in range(2):
             assert torch.isfinite(step(tp, state, tb))
         assert not torch.equal(before, tp.entity_reprs)
-
-
-def test_accum_dtype_names_its_roadmap_item():
-    """Only full_adam reads accum_dtype; its bfloat16 accumulation is not
-    ported, the other optimizers ignore the field as the JAX package does."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7"):
-        tupd.Optimizer(optimizer_config("full_adam", accum_dtype="bfloat16"))
-    tupd.Optimizer(optimizer_config("sgd", accum_dtype="bfloat16"))

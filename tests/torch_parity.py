@@ -218,41 +218,6 @@ def run_both_steps(desc, cfg, batches, np_params, kind=None, state_seed=None):
     return jparams, jstate, tparams, tstate, jcosts, tcosts
 
 
-def batch_to(batch, device, dtype):
-    """A port batch, or a composite's pair of batches, on ``device`` with
-    its float tensors in ``dtype``."""
-    if not hasattr(batch, "_fields"):
-        return tuple(batch_to(b, device, dtype) for b in batch)
-    return type(batch)(*(
-        t if t is None else t.to(device, dtype) if t.dtype.is_floating_point else t.to(device)
-        for t in batch
-    ))
-
-
-def assert_card_steps_match_cpu(card, desc, cfg, port_batches, ids, np_params):
-    """Three steps of the port's ``make_train_step`` in float32 on the card
-    (the kernels) against the same steps in float64 on the CPU (the plain
-    versions), the same ``ids`` injected: costs to rtol 1e-5, tables to
-    atol 1e-4 (float32 rounding over three steps; duplicate ids add in no
-    fixed order on the card)."""
-    from cunvsm_torch.optim import updates as tupd
-    from cunvsm_torch.train import step as tstep
-
-    results = []
-    for device, dtype in ((card, torch.float32), (torch.device("cpu"), torch.float64)):
-        params = params_from_numpy(np_params, device, dtype)
-        state = tupd.Optimizer(cfg).init(params)
-        step = tstep.make_train_step(desc, cfg, device, None)
-        costs = [float(step(params, state, batch_to(b, device, dtype), negative_ids=i.to(device)))
-                 for b, i in zip(port_batches, ids)]
-        results.append((np.array(costs), [to_np(t).astype(np.float64) for t in params]))
-    (gc, gp), (cc, cp) = results
-    np.testing.assert_allclose(gc, cc, rtol=1e-5)
-    for g, c, before in zip(gp, cp, np_params):
-        assert not np.array_equal(c, before)
-        np.testing.assert_allclose(g, c, rtol=0, atol=1e-4)
-
-
 def assert_same_training(result, rtol, atol):
     """Costs, tables and every state leaf of ``run_both_steps`` agree."""
     jparams, jstate, tparams, tstate, jcosts, tcosts = result
