@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
-    python3 chip_smoke.py [--seed N]     # about four minutes
+    python3 chip_smoke.py [--seed N]     # about five minutes
 
 It builds both kernels from the sources in the checkout: the sweep with
 Triton (its cache goes under build/triton) and the cast with nvcc (into
@@ -95,7 +95,40 @@ runs the port's main path:
      a row of n updates (and two runs of it against each other, within
      twice that: ``index_add_`` adds in no fixed order), then
      one warm-up and one timed call of K = 13 with each accumulator from
-     the same draws, the costs within G4_COST_RTOL.
+     the same draws, the costs within G4_COST_RTOL;
+  H  the mesh path (``cunvsm_torch/parallel``), on the one card, with the
+     word reduce in float32 so that only the order of the sums differs from
+     one device: H1 a process group of one rank with NCCL on cuda:0 and a
+     1x1 mesh: ``train_model(mesh=, on_device_sampling=True)`` for one epoch
+     (117 steps in calls of K = 13) through the sharded multistep, held to
+     the single-device ``train_model`` run of the same seed.  On the card two
+     single-device runs of one seed differ themselves after 117 steps
+     (``index_add_`` adds in no fixed order, Adam amplifies the last bit;
+     ``scripts/run_to_run_spread_torch.py``), so each side trains the epoch
+     twice: with the default kernels (the time, 2 sweeps and 1 cast per
+     step, every collective printed with its calls and bytes, the epoch
+     cost within H_COST_RTOL) and under
+     ``torch.use_deterministic_algorithms``, where every table entry is
+     held to H_TABLE_ATOL; then two calls of K = 13 with the default
+     kernels, bfloat16 and float32 streams, held to the mesh script's
+     LIMITS; H2 ``scripts/mesh_phase_torch.py``: four
+     processes on the one card as a 2x2 mesh.  NCCL refuses two ranks on one
+     device, so the group is gloo, asked for by name, and every buffer is
+     staged through the host (the log says so): the times say nothing of
+     four cards.  One warm-up and one timed call of K = 13, costs and
+     fetched tables against the same two calls on one device from the same
+     draws (costs within 1e-5, tables by root-mean-square, share and largest
+     difference, with bfloat16 and with float32 streams: the script's
+     LIMITS), each rank's entity sweep over its [131072, 256] shard, 2 sweeps
+     and 1 cast per step on every rank, the same calls with the bfloat16
+     word reduce (half the bytes), one padded step with N = 262143, one
+     epoch of ``train_model(mesh=, shard_corpus=True)`` into a model file
+     on the documents cut to 12 tokens (15 steps) against one device that
+     plays the data groups, the model file bitwise the fetched tables, and
+     100 queries, top 1000, through ``QueryEngine(mesh=)`` in two shards
+     with float32 and bfloat16 scores against the single-device engine.  A
+     rank that fails fails the script; a rank that hangs is killed at a
+     deadline.
 
 Without a CUDA device it exits with an error before printing any result.
 The last line of its output is one JSON object with "ok" and the device;
@@ -153,6 +186,8 @@ from cunvsm_torch.models.objectives import SimilarityBatch, SparseGrad, TextEnti
 from cunvsm_torch.models.params import init_params, params_from_numpy, params_to_numpy
 from cunvsm_torch.ops import adam_sweep, cast, cuda_build
 from cunvsm_torch.optim.updates import Optimizer, _sorted_segment_accumulate
+from cunvsm_torch.parallel import distributed
+from cunvsm_torch.parallel import mesh as pmesh
 from cunvsm_torch.query.engine import (QueryEngine, TermBruteforcer, _project_queries,
                                        _rank_kernel, load_query_engine)
 from cunvsm_torch.query.fusion import fuse_fixed_alpha
@@ -1576,6 +1611,140 @@ def phase_g(device, sizes, corpus_b, prefix, seed, tmp, reader_build_s):
 
 
 
+# H1: the mesh run against the single-device run of the same seed, both
+# float32 on the card.  Two runs of one seed with PyTorch's default kernels
+# are not equal: ``index_add_`` adds its rows with atomics, in no fixed order,
+# and 117 Adam steps amplify the last bit (two single-device runs differ by
+# up to 6.5e-4 after an epoch, and by nothing under
+# ``torch.use_deterministic_algorithms``: ``scripts/run_to_run_spread_torch.py``
+# on an NVIDIA H100 at 700 W).  So the epoch is trained twice on either side:
+# with the default kernels, for the time, the launches and the cost, and with
+# deterministic algorithms, where the tables are held entry by entry.  The
+# mesh is also held after two calls of K steps with the default kernels,
+# before the runs have drifted apart, to the limits of
+# ``scripts/mesh_phase_torch.py``.
+H_TABLE_ATOL = 5e-6
+H_COST_RTOL = 1e-5
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def log_collectives(phase, steps):
+    for name, entry in sorted(distributed.collective_log().items()):
+        log(f"{phase} collective {name}: {entry['op']} calls={entry['calls']} "
+            f"bytes={entry['bytes']} ({entry['bytes'] / max(steps, 1) / 2**20:.3f} MiB/step)"
+            f"{' staged through the host' if entry['staged_through_host'] else ''}")
+
+
+def h1_two_calls(mesh_phase, sizes, corpus, device, mesh=None):
+    """{streams: (costs, full tables, ms/step of the timed call)} of two
+    calls of K steps from one seed, on ``mesh`` or on one device."""
+    h_sizes = dict(mesh_phase.CANONICAL, **{k: sizes[k] for k in mesh_phase.CANONICAL if k in sizes})
+    out = {}
+    for streams in ("bfloat16", "float32"):
+        costs, params, seconds, _ = mesh_phase.two_calls(
+            h_sizes, corpus, device, 0, mesh, stream_dtype=streams)
+        out[streams] = (costs, params, 1e3 * seconds / h_sizes["steps_per_call"])
+    return out
+
+
+def phase_h1(device, sizes, corpus, tmp):
+    """A 1x1 mesh over an NCCL group of one rank: one epoch through
+    ``train_model(mesh=)`` against the single-device run of the same seed,
+    and two calls of K steps against the same two calls on one device."""
+    mesh_phase = load_source("mesh_phase_torch", "scripts", "mesh_phase_torch.py")
+    table_differences = mesh_phase.table_differences
+    short_single = h1_two_calls(mesh_phase, sizes, corpus, device)
+    desc, cfg = canonical_desc_cfg(sizes)
+    cfg = dataclasses.replace(cfg, num_epochs=1, cross_chip_reduce_dtype="float32")
+    kw = dict(on_device_sampling=True, steps_per_call=sizes["steps_per_call"])
+    single = train_model(desc, cfg, corpus, device, **kw)
+    with deterministic_algorithms():
+        exact_single = train_model(desc, cfg, corpus, device, **kw)
+    torch.cuda.synchronize()
+    distributed.initialize(f"file://{os.path.join(tmp, 'h1_rendezvous')}", 1, 0,
+                           backend="nccl", device=torch.device("cuda", 0))
+    try:
+        mesh = pmesh.make_mesh(1, 1)
+        distributed.reset_collective_log()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        meshed = train_model(desc, cfg, corpus, device, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        launches = read_launches(meshed.steps, "H1")
+        log_collectives("H1", meshed.steps)
+        staged = [n for n, e in distributed.collective_log().items() if e["staged_through_host"]]
+        if staged:
+            raise AssertionError(f"H1: NCCL collectives staged through the host: {staged}")
+        peak = torch.cuda.max_memory_allocated()
+        with deterministic_algorithms():
+            exact_mesh = train_model(desc, cfg, corpus, device, mesh=mesh, **kw)
+        exact_full = pmesh.fetch_params(mesh, exact_mesh.params, sizes["num_entities"])
+        short_mesh = h1_two_calls(mesh_phase, sizes, corpus, device, mesh)
+    finally:
+        distributed.shutdown()
+    failures = []
+    if meshed.steps != single.steps or not np.allclose(
+            meshed.epoch_costs + exact_mesh.epoch_costs,
+            single.epoch_costs + exact_single.epoch_costs, rtol=H_COST_RTOL, atol=0):
+        failures.append(f"mesh {meshed.steps} steps, costs {meshed.epoch_costs} and "
+                        f"{exact_mesh.epoch_costs}; one device {single.steps} steps, costs "
+                        f"{single.epoch_costs} and {exact_single.epoch_costs}")
+    diffs = table_differences(exact_full, exact_single.params, H_TABLE_ATOL)
+    failures += [f"deterministic epoch, {name}: mesh against one device {d}, limit {H_TABLE_ATOL}"
+                 for name, d in diffs.items() if d["max"] > H_TABLE_ATOL]
+    short = {}
+    for streams, (costs, params, ms) in short_mesh.items():
+        ref_costs, ref_params, ref_ms = short_single[streams]
+        if not np.allclose(costs, ref_costs, rtol=mesh_phase.COST_RTOL, atol=0):
+            failures.append(f"two calls, {streams} streams: mesh costs {costs}, one device {ref_costs}")
+        short[streams] = dict(differences=table_differences(params, ref_params),
+                              ms_per_step=ms, single_device_ms_per_step=ref_ms)
+        failures += [f"two calls, {streams} streams, {name}: {d}, limits {mesh_phase.LIMITS[streams]}"
+                     for name, d in short[streams]["differences"].items()
+                     if any(d[key] > limit for key, limit in mesh_phase.LIMITS[streams].items())]
+    stats = dict(
+        steps=meshed.steps, ms_per_step=1e3 / meshed.batches_per_sec,
+        single_device_ms_per_step=1e3 / single.batches_per_sec,
+        deterministic_ms_per_step=1e3 / exact_mesh.batches_per_sec,
+        deterministic_single_device_ms_per_step=1e3 / exact_single.batches_per_sec,
+        epoch_cost=meshed.epoch_costs[0], single_device_epoch_cost=single.epoch_costs[0],
+        deterministic_differences=diffs, table_atol=H_TABLE_ATOL, cost_rtol=H_COST_RTOL,
+        default_kernels_differences=table_differences(meshed.params, single.params),
+        two_calls=short, two_calls_limits=mesh_phase.LIMITS, peak_mem_gib=peak / 2**30,
+    )
+    log("H1 " + json.dumps(stats))
+    if failures:
+        raise AssertionError("H1: " + "; ".join(failures))
+    return launches
+
+
+def phase_h2(device, sizes, corpus, tmp, seed):
+    """Four ranks on the one card as a 2x2 mesh over gloo
+    (``scripts/mesh_phase_torch.py``)."""
+    mesh_phase = load_source("mesh_phase_torch", "scripts", "mesh_phase_torch.py")
+    out = os.path.join(tmp, "h2")
+    os.makedirs(out)
+    h2_sizes = dict(mesh_phase.CANONICAL, **{k: sizes[k] for k in mesh_phase.CANONICAL if k in sizes})
+    where = "cuda:0" if device.type == "cuda" else str(device)
+    stats, launches = mesh_phase.run("2x2", "gloo", [where], h2_sizes, corpus, out, seed)
+    log("H2 " + json.dumps(stats))
+    log(f"H2 launches on every rank: {launches} over {h2_sizes['steps_per_call']} steps")
+    return launches
+
+
+def phase_h(device, sizes, corpus, tmp, seed):
+    parts = [phase_h1(device, sizes, corpus, tmp), phase_h2(device, sizes, corpus, tmp, seed)]
+    return {key: sum(p[key] for p in parts) for key in ("sweep", "cast")}
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1636,6 +1805,9 @@ def main():
         by_path["G"] = phase_g(device, CANONICAL, corpus_b, prefix, args.seed, tmp,
                                reader_build_s)
         log(f"G done in {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        by_path["H"] = phase_h(device, CANONICAL, corpus_b, tmp, args.seed)
+        log(f"H done in {time.perf_counter() - t0:.1f}s")
     finally:
         shutil.rmtree(tmp)
     launches = {key: sum(p[key] for p in by_path.values()) for key in ("sweep", "cast")}

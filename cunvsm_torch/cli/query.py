@@ -4,9 +4,13 @@ rebuild of cuNVSMQuery / py/query.py).
 
 All queries are ranked in one batched matmul and top-k on the device
 (``query/engine.py``).  ``--device`` (default ``cuda``) takes the place of
-the JAX package's ``--platform``; ``--mesh`` (sharded serving) fails with
-``NotImplementedError`` naming ROADMAP queue 1, item 8.  ``--strict`` is
-parsed and, as in the JAX package's command, has no effect.
+the JAX package's ``--platform``.  ``--mesh DATAxMODEL`` shards the
+normalized document matrix by rows over the model axis: one process per
+device, launched like the train command (``--distributed`` under torchrun,
+or the ``--coordinator_address`` triple), every process with the same
+flags; each ranks its rows and the per-shard top-k candidates are merged
+(``parallel/query.py``).  The primary alone writes the run.  ``--strict``
+is parsed and, as in the JAX package's command, has no effect.
 
 Usage:
     python -m cunvsm_torch.cli.query --topics topics.txt \\
@@ -22,7 +26,12 @@ import sys
 
 import torch
 
-from cunvsm_torch.cli.train import add_device_flag, resolve_device
+from cunvsm_torch.cli.train import (
+    add_device_flag,
+    add_distributed_flags,
+    join_process_group,
+    mesh_from_flag,
+)
 from cunvsm_torch.config import DataConfig
 from cunvsm_torch.data.corpus import Corpus, load_corpus
 from cunvsm_torch.data.stemming import QueryStemmer, load_query_stemmer
@@ -30,7 +39,7 @@ from cunvsm_torch.data.text import load_stopwords, tokenize
 from cunvsm_torch.io.trec import read_qrels, read_topics, write_run
 from cunvsm_torch.query.engine import load_query_engine
 from cunvsm_torch.query.qlm import build_qlm_index, tfidf_rank
-from cunvsm_torch.train.trainer import not_ported
+from cunvsm_torch.parallel import distributed
 
 RUN_NAME = "cunvsm_torch"
 
@@ -49,8 +58,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--l2norm_phrase", action="store_true", default=False)
     p.add_argument("--mesh", default=None,
                    help="Shard the document matrix for serving, as "
-                        "'DATAxMODEL' (not ported yet: ROADMAP.md queue 1, "
-                        "item 8).")
+                        "'DATAxMODEL' (e.g. 1x4): each process scores its "
+                        "rows and the top-k candidates are merged.")
+    add_distributed_flags(p)
     p.add_argument("--score_dtype", choices=["float32", "bfloat16"], default="float32",
                    help="Document-matrix dtype for scoring; bfloat16 halves "
                         "the bytes the ranking reads, with float32 scores.")
@@ -79,10 +89,22 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    logging.basicConfig(level=args.loglevel)
-    if args.mesh:
-        raise not_ported("mesh", "item 8, multi-GPU")
-    device = resolve_device(args.device)
+    device = join_process_group(args)
+    try:
+        return _query(args, device)
+    finally:
+        distributed.shutdown()
+
+
+def _write_run(run, path: str) -> None:
+    """The primary alone writes; every rank holds the same run."""
+    if distributed.is_primary():
+        write_run(run, path, name=RUN_NAME)
+        logging.info("Run with %d rankings written to %s.", len(run), path)
+
+
+def _query(args, device) -> int:
+    logging.basicConfig(level=args.loglevel if distributed.is_primary() else "WARNING")
 
     engine = load_query_engine(
         args.model,
@@ -93,6 +115,7 @@ def main(argv=None) -> int:
         self_information=args.self_information,
         l2norm_phrase=args.l2norm_phrase,
         score_dtype=torch.bfloat16 if args.score_dtype == "bfloat16" else None,
+        mesh=mesh_from_flag(args.mesh),
     )
     logging.info("Loaded model: %d terms, %d documents.",
                  len(engine.term_to_id), len(engine.docnos))
@@ -185,12 +208,9 @@ def main(argv=None) -> int:
                 qid[0]: ranked for qid, ranked in run.items()
                 if isinstance(qid, tuple) and qid[1] == suffix
             }
-            out = f"{args.run_out}-{suffix}"
-            write_run(sub_run, out, name=RUN_NAME)
-            logging.info("Run with %d rankings written to %s.", len(sub_run), out)
+            _write_run(sub_run, f"{args.run_out}-{suffix}")
     else:
-        write_run(run, args.run_out, name=RUN_NAME)
-        logging.info("Run with %d rankings written to %s.", len(run), args.run_out)
+        _write_run(run, args.run_out)
     return 0
 
 

@@ -6,18 +6,27 @@ repository.
 
 ``--device`` (default ``cuda``) takes the place of the JAX package's
 ``--platform``; without a CUDA device the command fails unless it is given
-``--device cpu``.  The multi-device flags (``--mesh``, ``--shard_corpus``,
-``--distributed`` and the manual launch triple) parse and then fail with
-``NotImplementedError`` naming ROADMAP queue 1, item 8.
+``--device cpu``.
+
+A mesh run (``--mesh DATAxMODEL``) is one process per device, every process
+started with the same flags: under ``torchrun`` with bare ``--distributed``
+(the rendezvous and the ranks come from the environment), or by hand with
+``--coordinator_address host:port --num_processes N --process_id I``.  Rank
+i runs on ``cuda:<local rank>`` unless ``--device`` names a device index or
+the CPU; the backend follows the device (NCCL for CUDA, gloo for the CPU).
+The primary process alone writes files and logs below WARNING.
 
 Usage:
     python -m cunvsm_torch.cli.train [flags] <corpus_path> [similarity_path]
+    torchrun --nproc_per_node 4 -m cunvsm_torch.cli.train --distributed \
+        --mesh 2x2 [flags] <corpus_path>
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 
 import torch
@@ -33,7 +42,9 @@ from cunvsm_torch.config import (
 from cunvsm_torch.data.corpus import load_corpus
 from cunvsm_torch.data.instances import FeatureWeighting, Weighting
 from cunvsm_torch.data.sources import SimilaritySource, load_similarities
-from cunvsm_torch.train.trainer import not_ported, train_model
+from cunvsm_torch.parallel import distributed
+from cunvsm_torch.parallel.mesh import make_mesh, parse_mesh_shape
+from cunvsm_torch.train.trainer import train_model
 
 NONLINEARITIES = {
     "tanh": Nonlinearity.TANH,
@@ -57,8 +68,47 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def add_distributed_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--distributed", action="store_true",
+                   help="Multi-process run, one process per device, with the "
+                        "rendezvous and the ranks from the environment "
+                        "(torchrun).")
+    p.add_argument("--coordinator_address", default=None,
+                   help="host:port of process 0 (manual multi-process "
+                        "launch; implies --distributed).")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+
+
+def join_process_group(args) -> torch.device:
+    """This process's device; with ``--distributed`` or the manual triple
+    the process group is joined first, and a bare ``cuda`` device becomes
+    ``cuda:<local rank>`` (``LOCAL_RANK`` under torchrun, else the process
+    id modulo the visible devices).  The backend follows the device: NCCL
+    for CUDA, gloo for the CPU."""
+    device = resolve_device(args.device)
+    manual = args.coordinator_address is not None
+    if not (args.distributed or manual):
+        return device
+    if device.type == "cuda" and device.index is None:
+        local = args.process_id if manual else os.environ.get("LOCAL_RANK", os.environ.get("RANK"))
+        device = torch.device("cuda", int(local or 0) % torch.cuda.device_count())
+    distributed.initialize(
+        args.coordinator_address, args.num_processes, args.process_id,
+        backend="nccl" if device.type == "cuda" else "gloo", device=device,
+    )
+    return device
+
+
+def mesh_from_flag(text):
+    """The mesh of ``--mesh`` over the joined process group, or None."""
+    return make_mesh(*parse_mesh_shape(text)) if text else None
+
+
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description=__doc__)
+    p = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter
+    )
     p.add_argument("corpus_path")
     p.add_argument("similarity_path", nargs="?", default=None)
 
@@ -116,22 +166,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Steps per call of the on-device sampler (and per "
                         "reseed of the host-fed path's generator).")
     p.add_argument("--mesh", default=None,
-                   help="Multi-device mesh as 'DATAxMODEL' (not ported yet: "
-                        "ROADMAP.md queue 1, item 8).")
+                   help="Multi-device mesh as 'DATAxMODEL' (e.g. 2x2): the "
+                        "batch is split over DATA, the entity table and its "
+                        "optimizer state over MODEL; DATA*MODEL processes.")
     p.add_argument("--shard_corpus", action="store_true",
                    help="With --mesh and --on_device_sampling: shard the "
-                        "device corpus over the data axis (not ported yet).")
+                        "device corpus over the data axis (each data group "
+                        "holds and shuffles its own documents).")
     p.add_argument("--checkpoint_every", type=int, default=1,
                    help="Dump the per-epoch model/resume state every Nth "
                         "epoch (the final epoch always dumps).")
-    p.add_argument("--distributed", action="store_true",
-                   help="Multi-process run (not ported yet: ROADMAP.md "
-                        "queue 1, item 8).")
-    p.add_argument("--coordinator_address", default=None,
-                   help="host:port of process 0 (manual multi-process "
-                        "launch; implies --distributed).")
-    p.add_argument("--num_processes", type=int, default=None)
-    p.add_argument("--process_id", type=int, default=None)
+    add_distributed_flags(p)
     p.add_argument("--stream_dtype", default="float32", choices=("float32", "bfloat16"),
                    help="bfloat16 runs the gather / gradient-accumulation "
                         "streams at half width with float32 masters.")
@@ -172,13 +217,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    device = join_process_group(args)
+    try:
+        return _train(args, device)
+    finally:
+        distributed.shutdown()
+
+
+def _train(args, device) -> int:
     logging.basicConfig(
-        level=args.loglevel,
+        level=args.loglevel if distributed.is_primary() else "WARNING",
         format="%(asctime)s %(name)s %(levelname)s: %(message)s",
     )
-    if args.distributed or args.coordinator_address is not None:
-        raise not_ported("distributed", "item 8, multi-GPU")
-    device = resolve_device(args.device)
 
     if args.seed <= 0:
         # CHECK_GT(FLAGS_seed, 0) (main.cu:708).
@@ -270,7 +320,7 @@ def main(argv=None) -> int:
         profile_dir=args.profile_dir,
         log_every=args.log_every,
         steps_per_call=args.steps_per_call,
-        mesh=args.mesh,
+        mesh=mesh_from_flag(args.mesh),
         on_device_sampling=args.on_device_sampling,
         shard_corpus=args.shard_corpus,
         checkpoint_every=args.checkpoint_every,

@@ -291,10 +291,14 @@ def save_training_state(
     return path
 
 
-def load_training_state(prefix: str, params: ModelParams, opt_state: OptState):
+def load_training_state(prefix: str, params: ModelParams, opt_state: OptState,
+                        shard_rows=None):
     """Copy the saved state into ``params`` and ``opt_state`` in place
     (each leaf keeps its dtype and device); returns (params, opt_state,
-    epoch, extra)."""
+    epoch, extra).  ``shard_rows = (full_rows, rows)`` loads a mesh rank's
+    shards from the full padded layout: a saved leaf with ``full_rows``
+    rows whose model leaf has the ``rows`` slice's length is cut to
+    ``rows``."""
     with np.load(f"{prefix}_resume.npz") as data:
         leaves = state_leaves(params, opt_state)
         saved = [k for k in data.files if k.startswith("leaf_")]
@@ -304,6 +308,12 @@ def load_training_state(prefix: str, params: ModelParams, opt_state: OptState):
             )
         for i, leaf in enumerate(leaves):
             arr = data[f"leaf_{i}"]
+            if (
+                shard_rows is not None and arr.ndim and leaf.ndim
+                and arr.shape[0] == shard_rows[0] != leaf.shape[0]
+                and leaf.shape[0] == shard_rows[1].stop - shard_rows[1].start
+            ):
+                arr = arr[shard_rows[1]]
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"resume leaf {i}: shape {arr.shape}, expected {tuple(leaf.shape)}")
             leaf.copy_(torch.from_numpy(arr))

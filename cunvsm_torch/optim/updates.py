@@ -29,6 +29,30 @@ Where the JAX package returns new arrays (and donates the old buffers),
 this package updates the parameter and state tensors in place.  Every
 scatter adds one window slot at a time with ``index_add_`` over the [B, d]
 gradient rows, so the [B*W, d] update stream is never materialized.
+
+Under a mesh (``Optimizer(cfg, mesh=)``, ``parallel/mesh.py``) the
+optimizer is one rank's part of the SPMD program:
+
+* the **word table** is replicated and its descriptors are the rank's data
+  group's.  For full_adam every rank accumulates its own slice of the
+  update stream, split over *every* mesh axis, into a local dense [V, d]
+  partial, and **one** all-reduce of that partial over all ranks
+  (``word_partial``; narrowed to ``cfg.resolved_cross_chip_reduce_dtype()``
+  for the reduce when that is bfloat16, and widened back) gives every rank
+  the accumulator of the global batch: the counterpart of the JAX
+  package's ``_data_sharded_accumulate``.  The [B*W, d] stream never
+  crosses ranks.  The other optimizers' statistics are per instance
+  (window averages of state that every instance of the step updates), so
+  their [B/D, d] descriptors are all-gathered over the data axis
+  (``word_grads``) and every rank applies the global update to its
+  replica;
+* the **entity table** is sharded by rows over the model axis, and its
+  descriptors arrive global (``models/objectives.py``).
+  :func:`localize_descriptor` maps their rows to the shard and marks the
+  rows owned elsewhere, whose updates the scatters below drop by
+  selection, not by a multiply, so that no value read from a row of
+  another owner can leak in.  Every optimizer then runs unchanged on the
+  shard.
 """
 
 from __future__ import annotations
@@ -136,7 +160,10 @@ def _scatter_add(table: torch.Tensor, desc: SparseGrad, scale) -> None:
         upd = desc.grad
         if desc.weights is not None:
             upd = upd * desc.weights[:, w, None].to(upd.dtype)
-        sorted_segment_sum(table, desc.indices[:, w], scale * upd)
+        upd = scale * upd
+        if desc.owned is not None:
+            upd = _keep_owned(upd, desc.owned[:, w, None])
+        sorted_segment_sum(table, desc.indices[:, w], upd)
 
 
 def _scatter_add_scalar(
@@ -146,7 +173,27 @@ def _scatter_add_scalar(
     upd = values[:, None].expand(desc.indices.shape)
     if desc.weights is not None:
         upd = upd * desc.weights.to(upd.dtype)
-    vec.index_add_(0, desc.indices.reshape(-1), scale * upd.reshape(-1))
+    upd = scale * upd
+    if desc.owned is not None:
+        upd = _keep_owned(upd, desc.owned)
+    vec.index_add_(0, desc.indices.reshape(-1), upd.reshape(-1))
+
+
+def _keep_owned(upd: torch.Tensor, owned: torch.Tensor) -> torch.Tensor:
+    """``upd`` where ``owned``, zero elsewhere (a selection: a NaN or inf
+    computed for a row of another owner is dropped, not multiplied)."""
+    return torch.where(owned, upd, torch.zeros((), dtype=upd.dtype, device=upd.device))
+
+
+def localize_descriptor(desc: SparseGrad, shard_rows: int, model_index: int) -> SparseGrad:
+    """``desc`` over global entity rows, as this rank's shard takes it: the
+    shard holds the global rows [model_index * shard_rows, (model_index + 1)
+    * shard_rows).  Indices become local rows (clamped into the shard where
+    the row is owned elsewhere) and ``owned`` marks the rows that are this
+    rank's."""
+    local = desc.indices - model_index * shard_rows
+    owned = (local >= 0) & (local < shard_rows)
+    return desc._replace(indices=local.clamp(0, shard_rows - 1), owned=owned)
 
 
 def _window_mean_gather(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
@@ -199,8 +246,62 @@ def _sorted_segment_accumulate(
         weights = None if d.weights is None else d.weights.to(grad.dtype)
         for w in range(d.indices.shape[1]):
             upd = widened if weights is None else (grad * weights[:, w, None]).to(out_dtype)
+            if d.owned is not None:
+                upd = _keep_owned(upd, d.owned[:, w, None])
             sorted_segment_sum(out, d.indices[:, w], upd)
     return out
+
+
+def _every_rank_slice(desc: SparseGrad, mesh) -> SparseGrad:
+    """This rank's slice of a data group's descriptor: the group's rows
+    split over the model axis, so that the global update stream is split
+    over every mesh axis."""
+    rows = desc.indices.shape[0]
+    if rows % mesh.model:
+        raise ValueError(
+            f"data-sharded accumulation: instance count "
+            f"{rows * mesh.data} not divisible by the total device "
+            f"count {mesh.size} (mesh {dict(mesh.shape)}); pick a batch "
+            f"size divisible by data*model"
+        )
+    n = rows // mesh.model
+    part = slice(mesh.model_index * n, (mesh.model_index + 1) * n)
+    return SparseGrad(
+        desc.grad[part], desc.indices[part],
+        None if desc.weights is None else desc.weights[part],
+    )
+
+
+def _data_sharded_accumulate(
+    num_rows: int,
+    descs: Tuple[SparseGrad, ...],
+    mesh,
+    stream_dtype: Optional[torch.dtype] = None,
+    accum_dtype: Optional[torch.dtype] = None,
+    reduce_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """``_sorted_segment_accumulate`` of the global batch for a replicated
+    table, from the data groups' descriptors: each rank accumulates its
+    slice of the stream into a dense [num_rows, d] partial and one
+    all-reduce over every rank sums the partials.  Only the order of the
+    sums differs from the single-device accumulation.  ``reduce_dtype``
+    narrows the all-reduce alone: the local partial still accumulates at
+    full width."""
+    local = tuple(_every_rank_slice(d, mesh) for d in descs)
+    dense = _sorted_segment_accumulate(num_rows, local, stream_dtype, accum_dtype)
+    if reduce_dtype is not None and reduce_dtype != dense.dtype:
+        return mesh.all_reduce(dense.to(reduce_dtype), None, "word_partial").to(dense.dtype)
+    return mesh.all_reduce(dense, None, "word_partial")
+
+
+def _gather_word_descriptor(desc: SparseGrad, mesh) -> SparseGrad:
+    """The global batch's word descriptor from the data groups' (the
+    optimizers whose statistics are per instance need every row)."""
+
+    def gather(t):
+        return None if t is None else mesh.all_gather(t, "data", "word_grads")
+
+    return SparseGrad(gather(desc.grad), gather(desc.indices), gather(desc.weights))
 
 
 def _adam_bias_correction(beta1, beta2, t, dtype):
@@ -309,14 +410,23 @@ def _repr_adam_dense_update(state: ReprAdamState, table, descs, lr, lam, beta1, 
 
 def _repr_adam_full(
     state: ReprAdamState, table, descs, lr, lam, beta1, beta2, eps, stream_dtype=None,
-    accum_dtype=None,
+    accum_dtype=None, data_shard_mesh=None, reduce_dtype=None,
 ):
     # DENSE_UPDATE_DENSE_VARIANCE (updates_adam.cu:203-213,253-282,312-328):
     # one dense accumulation feeds both moments, then one fused sweep.  A
     # narrower accumulator is widened here, before the sweep reads it.
-    scattered = _sorted_segment_accumulate(
-        table.shape[0], tuple(descs), stream_dtype, accum_dtype
-    ).to(table.dtype)
+    # ``data_shard_mesh``: the table is replicated under a mesh and the
+    # descriptors are the data group's.
+    if data_shard_mesh is not None:
+        scattered = _data_sharded_accumulate(
+            table.shape[0], tuple(descs), data_shard_mesh, stream_dtype, accum_dtype,
+            reduce_dtype,
+        )
+    else:
+        scattered = _sorted_segment_accumulate(
+            table.shape[0], tuple(descs), stream_dtype, accum_dtype
+        )
+    scattered = scattered.to(table.dtype)
     bc = _adam_bias_correction(beta1, beta2, state.t, table.dtype)
     fused_adam_dense_sweep(
         table, state.m, state.v, scattered, lr * bc,
@@ -342,8 +452,15 @@ class Optimizer:
     transform (params.cu:45-62, 341-358): sgd, adagrad, and Adam in its
     SPARSE, DENSE_UPDATE and DENSE_UPDATE_DENSE_VARIANCE modes."""
 
-    def __init__(self, cfg: TrainConfig):
+    def __init__(self, cfg: TrainConfig, mesh=None):
+        """``mesh``: this optimizer is one rank's part of a mesh step (see
+        the module doc); ``params`` and ``opt_state`` are then the rank's
+        shards, the word descriptors its data group's and the entity
+        descriptors global."""
         self.cfg = cfg
+        self.mesh = mesh
+        reduce = cfg.resolved_cross_chip_reduce_dtype()
+        self.reduce_dtype = None if reduce is None else getattr(torch, reduce)
         stream = cfg.resolved_stream_dtype()
         self.stream_dtype = None if stream is None else getattr(torch, stream)
         accum = cfg.resolved_accum_dtype()
@@ -400,12 +517,22 @@ class Optimizer:
         transform when its gradients are None (a similarity objective)."""
         cfg = self.cfg
         lr, lam = learning_rate, scaled_regularization_lambda
-        for table, state, descs in (
-            (params.word_reprs, opt_state.word, grads.word),
-            (params.entity_reprs, opt_state.entity, grads.entity),
-        ):
-            if descs:
-                self._apply_repr(table, state, descs, lr, lam)
+        word, entity = grads.word, grads.entity
+        mesh = self.mesh
+        word_mesh = None
+        if mesh is not None:
+            if _is_full_adam(cfg):
+                word_mesh = mesh
+            else:
+                word = tuple(_gather_word_descriptor(d, mesh) for d in word)
+            shard_rows = params.entity_reprs.shape[0]
+            entity = tuple(
+                localize_descriptor(d, shard_rows, mesh.model_index) for d in entity
+            )
+        if word:
+            self._apply_repr(params.word_reprs, opt_state.word, word, lr, lam, word_mesh)
+        if entity:
+            self._apply_repr(params.entity_reprs, opt_state.entity, entity, lr, lam)
         if grads.transform_w is not None:
             args = (params.transform_w, params.transform_b,
                     grads.transform_w, grads.transform_b, lr, lam)
@@ -418,7 +545,7 @@ class Optimizer:
                                 cfg.adam.beta1, cfg.adam.beta2, cfg.adam.epsilon)
         return params, opt_state
 
-    def _apply_repr(self, table, state, descs, lr, lam):
+    def _apply_repr(self, table, state, descs, lr, lam, data_shard_mesh=None):
         cfg = self.cfg
         if cfg.update_method == UpdateMethod.SGD:
             _repr_sgd(table, descs, lr, lam)
@@ -432,4 +559,5 @@ class Optimizer:
         elif cfg.adam.mode == AdamMode.DENSE_UPDATE:
             _repr_adam_dense_update(*args)
         else:
-            _repr_adam_full(*args, stream_dtype=self.stream_dtype, accum_dtype=self.accum_dtype)
+            _repr_adam_full(*args, stream_dtype=self.stream_dtype, accum_dtype=self.accum_dtype,
+                            data_shard_mesh=data_shard_mesh, reduce_dtype=self.reduce_dtype)

@@ -29,6 +29,8 @@ import torch
 
 from cunvsm_torch.io import checkpoint as ckpt
 from cunvsm_torch.models.params import ModelParams
+from cunvsm_torch.parallel.mesh import pad_entities, shard_rows
+from cunvsm_torch.parallel.query import make_sharded_scorer, score_rows
 
 
 def _project_queries(query_reprs, transform_w, transform_b_scaled, nonlinearity):
@@ -52,13 +54,7 @@ def _rank_kernel(
     projected = _project_queries(
         query_reprs, transform_w, transform_b_scaled, nonlinearity
     )
-    q = projected.to(entity_norm.dtype)
-    if entity_norm.dtype == torch.float32:
-        scores = q @ entity_norm.T  # [Q, D] cosines
-    elif entity_norm.is_cuda:
-        scores = torch.mm(q, entity_norm.T, out_dtype=torch.float32)
-    else:
-        scores = q.to(torch.float32) @ entity_norm.to(torch.float32).T
+    scores = score_rows(projected.to(entity_norm.dtype), entity_norm)  # [Q, D] cosines
     return torch.topk(scores, top_k, dim=1)
 
 
@@ -75,10 +71,18 @@ class QueryEngine:
         self_information: bool = False,
         l2norm_phrase: bool = False,
         score_dtype: Optional[torch.dtype] = None,
+        mesh=None,
     ):
         """``score_dtype=torch.bfloat16`` stores the normalized document
         matrix in bfloat16 (half the bytes the ranking reads); the scores
-        stay float32 (see the module doc)."""
+        stay float32 (see the module doc).
+
+        ``mesh`` (a ``parallel.mesh.Mesh``) shards the normalized document
+        matrix by rows over the model axis for ``rank``: ``params`` are the
+        full tables, the same on every rank, each rank keeps its rows, and
+        ``rank`` becomes a collective that every rank must call with the
+        same queries.  A scorer is cached per ``top_k`` and the shard is
+        cut once."""
         self.term_to_id: Dict[str, int] = {t: i for i, t in enumerate(terms) if t}
         self.docnos = list(docnos)
         self._docno_to_id: Dict[str, int] = {d: i for i, d in enumerate(self.docnos)}
@@ -99,6 +103,13 @@ class QueryEngine:
         self._entity_norm = (entity / torch.clamp(norms, min=1e-30)).to(
             score_dtype or torch.float32
         )
+        self.mesh = mesh
+        if mesh is not None:
+            # Only this rank's rows are kept, zero-padded to an equal share.
+            self._entity_norm = shard_rows(
+                mesh, self._entity_norm, pad_entities(len(self.docnos), mesh.model)
+            )
+        self._sharded_scorers: Dict[int, object] = {}
 
     def query_representation(
         self, query_terms: Sequence[str], strict: bool = False
@@ -144,10 +155,13 @@ class QueryEngine:
             np.stack(reprs), dtype=self.transform_w.dtype,
             device=self.transform_w.device,
         )
-        scores, indices = _rank_kernel(
-            q, self.transform_w, self._bias_scaled, self._entity_norm, k,
-            self.nonlinearity,
-        )
+        if self.mesh is not None:
+            scores, indices = self._rank_sharded(q, k)
+        else:
+            scores, indices = _rank_kernel(
+                q, self.transform_w, self._bias_scaled, self._entity_norm, k,
+                self.nonlinearity,
+            )
         scores = scores.cpu().numpy()
         indices = indices.cpu().numpy()
         return {
@@ -156,6 +170,19 @@ class QueryEngine:
             ]
             for i, qid in enumerate(qids)
         }
+
+    def _rank_sharded(self, q: torch.Tensor, k: int):
+        """Project on every rank, score and merge over the sharded matrix."""
+        if k not in self._sharded_scorers:
+            # ``_entity_norm`` is this rank's shard: the true document
+            # count keeps its padding masked.
+            self._sharded_scorers[k], _ = make_sharded_scorer(
+                self.mesh, self._entity_norm, k, num_docs=len(self.docnos)
+            )
+        projected = _project_queries(
+            q, self.transform_w, self._bias_scaled, self.nonlinearity
+        )
+        return self._sharded_scorers[k](projected.to(self._entity_norm.dtype))
 
     def score_documents(
         self, query_terms: Sequence[str], docnos: Sequence[str]
@@ -175,7 +202,12 @@ class QueryEngine:
         # scores are rank()'s scores.
         proj = torch.from_numpy(proj).to(self._entity_norm.dtype).to(torch.float32).numpy()
         rows = torch.as_tensor(ids, device=self._entity_norm.device)
-        sub = self._entity_norm[rows].to(torch.float32).cpu().numpy()
+        if self.mesh is None:
+            sub = self._entity_norm[rows]
+        else:
+            # The rows come from their owners (a collective).
+            sub = self.mesh.gather_rows(self._entity_norm, rows, "document_rows")
+        sub = sub.to(torch.float32).cpu().numpy()
         scores = sub @ proj
         order = np.argsort(-scores)
         return [(self.docnos[ids[i]], float(scores[i])) for i in order]
@@ -297,7 +329,8 @@ class TermBruteforcer:
 
 def load_query_engine(prefix: str, epoch, device, **kwargs) -> QueryEngine:
     """A QueryEngine on ``device`` from ``<prefix>_<epoch>.hdf5``, the
-    ``_meta`` term frequencies and the vocabulary and docno sidecars."""
+    ``_meta`` term frequencies and the vocabulary and docno sidecars;
+    ``mesh=`` and the other keywords go to ``QueryEngine``."""
     params = ckpt.load_model_hdf5(prefix, epoch, device)
     meta = ckpt.load_meta(prefix)
     terms = ckpt.load_strings(f"{prefix}_vocab.txt")

@@ -15,6 +15,16 @@ The negative-sampling resolution (``resolve_negative_sampling`` and its
 constants) is copied unchanged, so both packages pick the same layout for
 the same configuration.  Under reference-RNG replay the host draws every
 instance's negatives and they ride in the batch (``TextEntityBatch.negatives``).
+
+Under a mesh (``make_train_step(..., mesh=)``, ``parallel/mesh.py``) the
+step is one rank's part of an SPMD program: ``batch`` holds the rows of the
+rank's data group, ``params`` and ``opt_state`` its shards.  The negatives
+are drawn for the *global* batch from a generator that every rank seeds
+alike, and the rank keeps its rows, so a mesh run consumes the stream of
+the single-device run of that seed.  The cost's normalizer is the global
+batch size; the cost and the transform gradients are summed over the data
+axis in one all-reduce (``cost_and_transform_grads``); the objectives and
+the optimizer call the other collectives.
 """
 
 from __future__ import annotations
@@ -164,18 +174,25 @@ def _dtype(name: Optional[str]) -> Optional[torch.dtype]:
 
 def _text_entity_grads(
     params: ModelParams, batch: obj.TextEntityBatch, generator, device, desc,
-    cfg, num_entities=None, negative_ids=None,
+    cfg, num_entities=None, negative_ids=None, mesh=None,
 ):
     """(cost, AscentGrads).  ``negative_ids`` replaces the draw from
     ``generator``: the [P] pool ids under the rolled-pool layout, the [k]
     shared ids under ``shared_negatives``, the [B, k] per-instance
     negatives otherwise, where the batch's own ``negatives`` (host-drawn
-    under reference-RNG replay) come next."""
+    under reference-RNG replay) come next.  Under a ``mesh`` the batch and
+    given per-instance negatives are this data group's rows, drawn
+    negatives are the global batch's, of which the group keeps its rows,
+    and ``num_entities`` (the real, unpadded count) is required."""
     if cfg.shared_negatives and cfg.negative_pool_size > 0:
         raise ValueError("shared_negatives and negative_pool_size are mutually exclusive")
+    if mesh is not None and not num_entities:
+        raise ValueError("a step under a mesh needs num_entities, the real entity count")
     num_entities = num_entities or params.num_entities
+    local_rows = batch.features.shape[0]
+    global_rows = local_rows * (1 if mesh is None else mesh.data)
     pool, pool_stride = resolve_negative_sampling(
-        cfg, desc, batch.features.shape[0], num_entities=num_entities
+        cfg, desc, global_rows, num_entities=num_entities
     )
     if (cfg.shared_negatives or pool) and not _accumulate_only_optimizer(cfg):
         raise ValueError(
@@ -185,6 +202,8 @@ def _text_entity_grads(
         stream_dtype=_dtype(cfg.resolved_stream_dtype()),
         uniform_feature_weights=cfg.uniform_feature_weights,
         window_sum_dtype=_dtype(cfg.resolved_window_sum_dtype()),
+        batch_size_normalizer=global_rows,
+        mesh=mesh,
     )
     if pool:
         pool_ids = negative_ids
@@ -208,11 +227,15 @@ def _text_entity_grads(
     if negative_ids is None:
         negative_ids = batch.negatives
     if negative_ids is None:
-        entity_ids = obj.sample_negative_entities(
-            generator, batch.labels, num_entities, cfg.num_random_entities
+        # Uniform over [0, num_entities) per instance (labels.cu:3-22), for
+        # the global batch.
+        negative_ids = torch.randint(
+            0, num_entities, (global_rows, cfg.num_random_entities),
+            generator=generator, device=batch.labels.device, dtype=batch.labels.dtype,
         )
-    else:
-        entity_ids = torch.cat([batch.labels[:, None], negative_ids], dim=1)
+        if mesh is not None:
+            negative_ids = negative_ids[mesh.batch_rows(global_rows)]
+    entity_ids = torch.cat([batch.labels[:, None], negative_ids], dim=1)
     cost, _, grads = obj.text_entity_cost_and_grads(
         params, batch, entity_ids, desc,
         factored_entity_grads=_accumulate_only_optimizer(cfg), **common
@@ -220,9 +243,14 @@ def _text_entity_grads(
     return cost, grads
 
 
-def _similarity_grads(params: ModelParams, batch: obj.SimilarityBatch, desc, table_name: str):
+def _similarity_grads(params: ModelParams, batch: obj.SimilarityBatch, desc, table_name: str,
+                      mesh=None):
     table = params.word_reprs if table_name == "word" else params.entity_reprs
-    cost, _, sparse = obj.similarity_cost_and_grads(table, batch, desc)
+    cost, _, sparse = obj.similarity_cost_and_grads(
+        table, batch, desc,
+        batch_size_normalizer=batch.ids.shape[0] * (1 if mesh is None else mesh.data),
+        mesh=mesh, sharded_table=table_name == "entity",
+    )
     if table_name == "word":
         return cost, obj.AscentGrads((sparse,), (), None, None)
     return cost, obj.AscentGrads((), (sparse,), None, None)
@@ -244,6 +272,7 @@ def compute_cost_and_grads(
     cfg: TrainConfig,
     num_entities: Optional[int] = None,
     negative_ids=None,
+    mesh=None,
 ):
     """(cost, merged AscentGrads) for any objective flavour.
 
@@ -252,26 +281,56 @@ def compute_cost_and_grads(
     (MultiForwardResultBase::get_cost, intermediate_results.cu:222-230)
     while the gradients merge weighted by the mixture weights
     (objective.cu:724-743, intermediate_results.cu:3-60).
-    ``negative_ids`` is that of ``_text_entity_grads``.
+    ``negative_ids`` is that of ``_text_entity_grads``.  Under a ``mesh``
+    the cost and the transform gradients returned are the global ones, on
+    every rank.
     """
+    cost, grads = _local_cost_and_grads(
+        kind, params, batch, generator, device, desc, cfg, num_entities, negative_ids, mesh
+    )
+    if mesh is not None:
+        cost, grads = _sum_over_data_groups(mesh, cost, grads)
+    return cost, grads
+
+
+def _local_cost_and_grads(kind, params, batch, generator, device, desc, cfg, num_entities,
+                          negative_ids, mesh):
     if kind == ObjectiveKind.TEXT_ENTITY:
         return _text_entity_grads(
-            params, batch, generator, device, desc, cfg, num_entities, negative_ids
+            params, batch, generator, device, desc, cfg, num_entities, negative_ids, mesh
         )
     if kind == ObjectiveKind.ENTITY_ENTITY:
-        return _similarity_grads(params, batch, desc, "entity")
+        return _similarity_grads(params, batch, desc, "entity", mesh)
     if kind == ObjectiveKind.TERM_TERM:
-        return _similarity_grads(params, batch, desc, "word")
+        return _similarity_grads(params, batch, desc, "word", mesh)
     te_batch, sim_batch = batch
     te_cost, te_grads = _text_entity_grads(
-        params, te_batch, generator, device, desc, cfg, num_entities, negative_ids
+        params, te_batch, generator, device, desc, cfg, num_entities, negative_ids, mesh
     )
     table, sim_weight = _similarity_table_and_weight(kind, cfg)
-    sim_cost, sim_grads = _similarity_grads(params, sim_batch, desc, table)
+    sim_cost, sim_grads = _similarity_grads(params, sim_batch, desc, table, mesh)
     merged = obj.merge_ascent_grads(
         ((te_grads, cfg.text_entity_weight), (sim_grads, sim_weight))
     )
     return 0.5 * (te_cost + sim_cost), merged
+
+
+def _sum_over_data_groups(mesh, cost, grads: obj.AscentGrads):
+    """The global cost and transform gradients from the data groups' parts
+    (each normalized by the global batch size): one all-reduce over the
+    data axis of the three packed into one buffer."""
+    parts = [cost.reshape(1)]
+    if grads.transform_w is not None:
+        parts += [grads.transform_w.reshape(-1), grads.transform_b.reshape(-1)]
+    packed = mesh.all_reduce(torch.cat(parts), "data", "cost_and_transform_grads")
+    cost = packed[0]
+    if grads.transform_w is not None:
+        n_w = grads.transform_w.numel()
+        grads = grads._replace(
+            transform_w=packed[1:1 + n_w].view_as(grads.transform_w),
+            transform_b=packed[1 + n_w:].view_as(grads.transform_b),
+        )
+    return cost, grads
 
 
 def scaled_regularization_lambda(cfg: TrainConfig) -> float:
@@ -288,6 +347,7 @@ def make_train_step(
     generator: torch.Generator,
     num_entities: Optional[int] = None,
     kind: Optional[ObjectiveKind] = None,
+    mesh=None,
 ):
     """Build ``step(params, opt_state, batch, negative_ids=None) -> cost``
     for ``kind`` (by default the one the mixture weights of ``cfg`` give).
@@ -298,16 +358,21 @@ def make_train_step(
     ``_text_entity_grads``).  ``num_entities`` bounds the negative draws
     when the entity table is larger than the collection.  The returned cost
     is a 0-d tensor on ``device``; reading it waits for the step.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``) makes it this rank's part of the
+    mesh step (see the module doc): ``batch`` is then the rank's rows of the
+    global batch and the returned cost the global one.
     """
     if kind is None:
         kind = objective_kind_from_config(cfg)
-    optimizer = Optimizer(cfg)
+    optimizer = Optimizer(cfg, mesh=mesh)
     lr = cfg.resolved_learning_rate()
     lam = scaled_regularization_lambda(cfg)
 
     def step(params: ModelParams, opt_state: OptState, batch, negative_ids=None):
         cost, grads = compute_cost_and_grads(
-            kind, params, batch, generator, device, desc, cfg, num_entities, negative_ids
+            kind, params, batch, generator, device, desc, cfg, num_entities, negative_ids,
+            mesh,
         )
         optimizer.apply(params, opt_state, grads, lr, lam)
         return cost
@@ -316,14 +381,16 @@ def make_train_step(
 
 
 def make_cost_fn(desc: ModelDesc, cfg: TrainConfig, kind: ObjectiveKind, device,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, num_entities: Optional[int] = None,
+                 mesh=None):
     """Forward-only ``cost(params, batch, negative_ids=None)`` (Model::get_cost,
     model.cu:154-174): the reported cost of ``compute_cost_and_grads``.  The
     same draws (or ``negative_ids``) give the same cost."""
 
     def cost(params: ModelParams, batch, negative_ids=None):
         c, _ = compute_cost_and_grads(
-            kind, params, batch, generator, device, desc, cfg, negative_ids=negative_ids
+            kind, params, batch, generator, device, desc, cfg, num_entities,
+            negative_ids=negative_ids, mesh=mesh,
         )
         return c
 

@@ -44,13 +44,13 @@ from cunvsm_torch.config import (
 )
 from cunvsm_torch.query.engine import QueryEngine
 from cunvsm_torch.query.metrics import evaluate_run
-from cunvsm_torch.train.trainer import not_ported, train_model
+from cunvsm_torch.train.trainer import train_model
 
 CONFIGS = {
     "perinst": dict(negative_pool_size=0),
     "pool2048_s205": dict(negative_pool_size=2048, negative_pool_stride=205),
-    # The sharded-corpus epoch shuffle simulated on one device: it goes with
-    # the multi-device slice.
+    # The sharded-corpus epoch shuffle (8 data groups) simulated on one
+    # device (``train_model(stratify_data_groups=8)``).
     "pool2048_s205_strat8": dict(
         negative_pool_size=2048, negative_pool_stride=205, _stratify=8
     ),
@@ -129,8 +129,7 @@ def study_desc() -> ModelDesc:
 
 def study_config(config: str, seed: int, num_epochs: int = 30) -> TrainConfig:
     overrides = dict(CONFIGS[config])
-    if overrides.pop("_stratify", 0):
-        raise not_ported("stratify_data_groups", "item 8")
+    overrides.pop("_stratify", 0)  # a trainer option: see run_seed
     return TrainConfig(
         num_epochs=num_epochs, batch_size=BATCH_SIZE, window_size=10,
         num_random_entities=10, regularization_lambda=1e-2,
@@ -154,6 +153,7 @@ def run_seed(corpus, queries, qrels, config, seed, device, num_epochs=30,
         desc, cfg, corpus, device,
         on_device_sampling=True,
         steps_per_call=steps_per_call,
+        stratify_data_groups=CONFIGS[config].get("_stratify", 0),
     )
     engine = QueryEngine(
         result.params, corpus.vocab.terms, corpus.docnos,
@@ -206,7 +206,6 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is available")
-    study_config(args.config, 1)  # refuse an unported config before the corpus is made
 
     corpus, queries, qrels = make_corpus(args.num_docs)
     logging.info(

@@ -10,9 +10,8 @@ package's ``cunvsm-train`` and ``cunvsm-query``, on the CPU.
   topic files, ``--rerank_exact_matching_documents --corpus``, the
   stemmers and the query-side options;
 * ``python -m cunvsm_torch.cli.train`` and ``.query`` run as modules;
-* the refusals: ``--seed 0`` exits 1, the multi-device flags raise
-  ``NotImplementedError`` naming item 8, and ``--device cuda`` fails
-  without a card.
+* the refusals: ``--seed 0`` exits 1 and ``--device cuda`` fails without
+  a card (the multi-device flags: tests/test_torch_parallel.py).
 """
 
 import json
@@ -182,25 +181,6 @@ def test_train_requires_a_positive_seed(corpus_file, tmp_path):
     assert ttrain.main([corpus_file, "--output", str(tmp_path / "x"), "--device", "cpu",
                         *flags]) == 1
     assert not os.listdir(tmp_path)
-
-
-@pytest.mark.parametrize("flags", [
-    ["--mesh", "1x2"], ["--shard_corpus"], ["--distributed"],
-    ["--coordinator_address", "localhost:1234", "--num_processes", "2", "--process_id", "0"],
-])
-def test_train_multi_device_flags_name_item_8(corpus_file, tmp_path, flags):
-    base = [f for f in TRAIN_FLAGS if f != "--reference_rng"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8"):
-        ttrain.main([corpus_file, "--output", str(tmp_path / "x"), "--device", "cpu",
-                     *base, *flags])
-
-
-def test_query_mesh_names_item_8(models, tmp_path):
-    _, prefix = models
-    topics = _topics(tmp_path, "t.txt", QUERIES)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8"):
-        tquery.main(["--topics", topics, "--model", prefix, "--epoch", "1", "--mesh", "1x2",
-                     "--device", "cpu", str(tmp_path / "run")])
 
 
 def test_device_cuda_without_a_card_fails(corpus_file, models, tmp_path):

@@ -283,3 +283,51 @@ def test_cpp_source_copy_is_the_original(source):
         original = f.read()
     with open(os.path.join(REPO, "cunvsm_torch", "csrc", source), "rb") as f:
         assert f.read() == original
+
+
+@pytest.mark.parametrize("n_devices", [0, 1, 2, 3, 4, 6, 7, 8, 9, 16, 64])
+def test_default_mesh_shape_matches(n_devices):
+    from cunvsm_tpu.parallel import mesh as jmesh
+    from cunvsm_torch.parallel import mesh as tmesh
+
+    assert tmesh.default_mesh_shape(n_devices) == jmesh.default_mesh_shape(n_devices)
+    data, model = tmesh.default_mesh_shape(n_devices)
+    assert data * model == max(n_devices, 1)
+
+
+@pytest.mark.parametrize("model_axis", [1, 2, 3, 4, 8])
+def test_pad_entities_matches(model_axis):
+    from cunvsm_tpu.parallel import mesh as jmesh
+    from cunvsm_torch.parallel import mesh as tmesh
+
+    for n in (1, 2, 7, 8, 9, 50, 1398, 262143, 262144):
+        padded = tmesh.pad_entities(n, model_axis)
+        assert padded == jmesh.pad_entities(n, model_axis)
+        assert padded % model_axis == 0 and 0 <= padded - n < model_axis
+
+
+@pytest.mark.parametrize("n_groups", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("seed,num_docs,max_len", [(0, 40, 12), (1, 97, 40), (2, 513, 6)])
+def test_token_balanced_groups_match(seed, num_docs, max_len, n_groups):
+    """The data groups of the sharded corpus on a grid of collections: the
+    same contiguous groups as the JAX package's, which partition the
+    eligible documents."""
+    from cunvsm_tpu.data import device_sampler as jds
+    from cunvsm_torch.data import device_sampler as tds
+
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(1, max_len, num_docs)
+    eligible = np.flatnonzero(lengths >= 4).astype(np.int32)
+    want = jds._token_balanced_groups(eligible, lengths[eligible], n_groups)
+    got = tds._token_balanced_groups(eligible, lengths[eligible], n_groups)
+    assert len(got) == len(want) == n_groups
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(np.concatenate(got), eligible)
+
+
+def test_token_balanced_groups_refuse_an_empty_group():
+    from cunvsm_torch.data import device_sampler as tds
+
+    with pytest.raises(ValueError, match="empty shard"):
+        tds._token_balanced_groups(np.arange(2), np.asarray([100, 1]), 3)

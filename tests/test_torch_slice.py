@@ -176,7 +176,20 @@ def test_batch_from_numpy():
 FORBIDDEN = ("jax", "jaxlib", "cunvsm_tpu", "triton", "h5py", "google.protobuf", "sklearn",
              "matplotlib")
 COMMANDS = ("train", "query", "combine_runs", "dump_vocabulary", "extract_reuters", "visualize")
-NEW_MODULES = ("compat.nvsm", "query.fusion", "data.indri", "data.native")
+NEW_MODULES = ("compat.nvsm", "query.fusion", "data.indri", "data.native",
+               "parallel.distributed", "parallel.mesh", "parallel.query")
+# Sources outside the package that run where there is no JAX: the card's
+# scripts and tests, and the worker of the multi-process tests.
+JAX_FREE_SOURCES = (
+    "chip_smoke.py", "profile_torch_step.py",
+    os.path.join("scripts", "mesh_phase_torch.py"),
+    os.path.join("scripts", "collection_scale_study_torch.py"),
+    os.path.join("scripts", "repeat_phase_f.py"),
+    os.path.join("scripts", "run_to_run_spread_torch.py"),
+    os.path.join("tests", "_torch_distributed_worker.py"),
+    os.path.join("tests_card", "conftest.py"), os.path.join("tests_card", "card_parity.py"),
+    os.path.join("tests_card", "test_card_parallel.py"),
+)
 
 
 def _forbidden(name: str) -> bool:
@@ -218,7 +231,7 @@ def test_port_sources_name_no_jax_import():
 
     root = os.path.join(REPO, "cunvsm_torch")
     files = [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs if f.endswith(".py")]
-    files += [os.path.join(REPO, f) for f in ("chip_smoke.py", "profile_torch_step.py")]
+    files += [os.path.join(REPO, f) for f in JAX_FREE_SOURCES]
     for path in files:
         tree = ast.parse(open(path).read())
         for node in ast.walk(tree):
@@ -323,3 +336,47 @@ def test_tools_open_no_file_of_the_jax_package(tmp_path):
     assert out.returncode == 0, out.stderr
     for name in ("fused", "vocab", "p_tensors.tsv", "p_metadata.tsv"):
         assert os.path.exists(tmp_path / name), name
+
+
+def test_mesh_paths_open_no_file_of_the_jax_package(tmp_path):
+    """The mesh layer in a fresh interpreter with an audit hook on ``open``:
+    both commands with ``--mesh 1x1`` (a single process is a 1x1 mesh), and
+    the import of the multi-process tests' worker and of
+    ``scripts/mesh_phase_torch.py``, read no file under ``cunvsm_tpu/`` and
+    load no forbidden package."""
+    corpus = tmp_path / "docs.jsonl"
+    docs, _ = synthetic_corpus(num_docs_per_topic=2, doc_len=12)
+    corpus.write_text("".join(f'{{"id": "{d}", "text": "{t}"}}\n' for d, t in docs))
+    topics = tmp_path / "topics.txt"
+    topics.write_text("1;rocket orbit\n2;oven flour\n")
+    prefix, run = str(tmp_path / "m"), str(tmp_path / "run")
+    code = (
+        "import importlib.util, os, sys\n"
+        "before = set(sys.modules)\n"
+        "opened = []\n"
+        "sys.addaudithook(lambda e, a: opened.append(str(a[0])) if e == 'open' else None)\n"
+        "from cunvsm_torch.cli import query, train\n"
+        f"assert train.main([{str(corpus)!r}, '--output', {prefix!r}, '--device', 'cpu',\n"
+        "    '--update_method', 'full_adam', '--nonlinearity', 'hard_tanh',\n"
+        "    '--batch_normalization', '--seed', '1', '--num_epochs', '1', '--window_size', '4',\n"
+        "    '--batch_size', '8', '--min_document_frequency', '0',\n"
+        "    '--max_document_frequency', '0', '--mesh', '1x1', '--on_device_sampling',\n"
+        "    '--shard_corpus']) == 0\n"
+        f"assert query.main(['--topics', {str(topics)!r}, '--model', {prefix!r}, '--epoch', '1',\n"
+        f"    '--device', 'cpu', '--mesh', '1x1', {run!r}]) == 0\n"
+        "for path in (os.path.join('tests', '_torch_distributed_worker.py'),\n"
+        "             os.path.join('scripts', 'mesh_phase_torch.py')):\n"
+        "    spec = importlib.util.spec_from_file_location('m', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = [p for p in opened if 'cunvsm_tpu' in p]\n"
+        "assert not bad, bad\n"
+        f"bad = sorted(m for m in set(sys.modules) - before\n"
+        f"             if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
+        "assert not bad, bad\n"
+        "assert 'cunvsm_torch.parallel.mesh' in sys.modules\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert os.path.exists(run)

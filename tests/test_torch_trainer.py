@@ -12,10 +12,10 @@
   file;
 * on-device epochs train every full batch once: a K that does not divide
   the epoch adds one remainder call, a K larger than the epoch is clamped;
-* the JAX trainer's guards raise ValueError, and the options this package
-  does not have raise NotImplementedError naming their ROADMAP item
-  (compute_initial_cost, profile_dir and check_gradients have their own
-  tests in tests/test_torch_trainer_options.py).
+* the JAX trainer's guards raise ValueError (compute_initial_cost,
+  profile_dir and check_gradients have their own tests in
+  tests/test_torch_trainer_options.py; the mesh options in
+  tests/test_torch_parallel.py and tests/test_torch_sharded_corpus.py).
 """
 
 import logging
@@ -226,19 +226,6 @@ def test_derived_seeds_differ_by_stream_and_counter():
 def test_jax_guards_raise_value_error(kwargs, config, match):
     with pytest.raises(ValueError, match=match):
         train_model(DESC, cfg(1, **config), small_corpus(), CPU, **kwargs)
-
-
-@pytest.mark.parametrize("option,value,item", [
-    ("mesh", object(), "item 8"),
-    ("shard_corpus", True, "item 8"),
-    ("stratify_data_groups", 2, "item 8"),
-])
-def test_unported_options_raise(option, value, item):
-    kwargs = {option: value}
-    if option in ("shard_corpus", "stratify_data_groups"):
-        kwargs.update(on_device_sampling=True, mesh=None if option != "shard_corpus" else object())
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
-        train_model(DESC, cfg(1), small_corpus(), CPU, **kwargs)
 
 
 def optimizer_cfg(name, n):
