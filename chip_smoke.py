@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
-    python3 chip_smoke.py [--seed N]     # about five minutes
+    python3 chip_smoke.py [--seed N]     # about seven minutes
 
 It builds both kernels from the sources in the checkout: the sweep with
 Triton (its cache goes under build/triton) and the cast with nvcc (into
@@ -128,7 +128,30 @@ runs the port's main path:
      100 queries, top 1000, through ``QueryEngine(mesh=)`` in two shards
      with float32 and bfloat16 scores against the single-device engine.  A
      rank that fails fails the script; a rank that hangs is killed at a
-     deadline.
+     deadline;
+  I  the evaluation pipelines, called in process (PHASE_I): I1
+     ``scripts/rank_adhoc_torch.py`` on a four-index Indri repository of
+     65,536 documents from ``scripts/make_adhoc_fixture.py`` (made in a
+     process of its own while phases B-H run), canonical width with
+     bfloat16 streams, on-device sampling in calls of K = 13, 4 epochs,
+     validation and a dump every 2: a first run that must raise the
+     simulated crash after epoch 2, then ``--resume``, which must start at
+     epoch 3; the curve holds epochs 2 and 4, results.json every key, the
+     NVSM test MAP at least I_MIN_NVSM_MAP, 2 sweeps and 1 cast per step,
+     ms/step per epoch and each stage's wall time printed; I2 the same two
+     runs on a 1x1 mesh over an NCCL group of one rank (resume under a
+     mesh), held to I1 on the resumed epoch, the curve's epochs and the QLM
+     MAPs; I3 ``scripts/rank_cranfield_torch.py`` on a synthetic collection
+     of Cranfield's size (1,398 documents, 225 topics, made from --seed):
+     LSE (host-fed, batch 4096) and NVSM (batch 51200) at full width for 3
+     epochs with bfloat16 streams, the grid-CV fusion off, the QLM MAPs
+     equal to the same call on the CPU, then NVSM on a 1x1 mesh (the
+     host-fed mesh trainer); I4 ``scripts/product_substitutability_torch.py``
+     on a synthetic product fixture (65,536 products, 2,048 topics) at full
+     width: the TEXT_ENTITY_ENTITY_ENTITY composite at weight 0.1 for 2
+     epochs, costs finite, the selected epoch one that was validated, 2
+     sweeps and no cast per step (float32 streams).  Its time is printed
+     beside its budget, I_BUDGET_S.
 
 Without a CUDA device it exits with an error before printing any result.
 The last line of its output is one JSON object with "ok" and the device;
@@ -152,6 +175,7 @@ import os
 import shutil
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -1028,9 +1052,14 @@ def run_command(main_fn, argv, what):
     return logs, time.perf_counter() - t0
 
 
+def trained_epochs(logs):
+    """[(epoch, cost, steps, seconds)] of every epoch the trainer logged."""
+    return [(a[0], a[2], a[3], a[4]) for a in logs.args("Epoch %d%s: cost")]
+
+
 def epoch_records(logs):
     """(cost, steps, seconds) of every epoch the trainer logged."""
-    return [(a[2], a[3], a[4]) for a in logs.args("Epoch %d")]
+    return [e[1:] for e in trained_epochs(logs)]
 
 
 def canonical_flags(sizes):
@@ -1745,6 +1774,266 @@ def phase_h(device, sizes, corpus, tmp, seed):
     return {key: sum(p[key] for p in parts) for key in ("sweep", "cast")}
 
 
+# ---------------------------------------------------------------------------
+# Phase I: the evaluation pipelines of ``scripts/*_torch.py``, in process.
+# ---------------------------------------------------------------------------
+
+# The ad hoc fixture's depth is cut from the rehearsal's 524,288 documents
+# (scripts/rehearse_adhoc_torch.sh) for the time limit; its widths are not:
+# 120 tokens a document over V 65536, 512 topics, 4 indexes.  The protocol
+# runs at the canonical width (d 300 -> 256, B 51200, W 10, k 10, bfloat16
+# streams, pool auto) for 4 epochs in calls of K = 13.  The Cranfield shape:
+# 1,398 documents and 225 topics, trained 3 epochs at full width; the
+# product fixture: 65,536 products (the reference's sports_and_outdoors
+# product list) and 2,048 topics, 2 epochs.
+PHASE_I = dict(
+    adhoc_docs=65536, epochs=4, steps_per_call=13, batch=51200, word_dim=300, entity_dim=256,
+    cranfield_docs=1398, cranfield_topics=225, cranfield_epochs=3, cranfield_quick=False,
+    products=65536, product_topics=2048, product_epochs=2,
+)
+# The least NVSM test MAP of I1 and I2 after 4 epochs (the JAX package's
+# 524,288-document record is 0.7689 at its selected epoch 9).
+I_MIN_NVSM_MAP = 0.5
+I_BUDGET_S = 120.0
+ADHOC_RESULT_KEYS = sorted([
+    "best_epoch", "validation_map", "validation_curve", "nvsm_test_map", "wall_clock_s",
+    "num_docs", "resumed", "qlm_jm_prf_test_map", "nvsm+qlm_jm_prf_test_map",
+    "qlm_dirichlet_prf_test_map", "nvsm+qlm_dirichlet_prf_test_map",
+])
+QLM_NAMES = ("qlm_jm", "qlm_jm_prf", "qlm_dirichlet", "qlm_dirichlet_prf")
+
+
+def start_adhoc_fixture(root, num_docs):
+    """``scripts/make_adhoc_fixture.py`` (4 indexes, its default seed; run
+    through ``scripts/make_adhoc_fixture_torch.py``) in a process of its own, started before phase B so that its minutes of host
+    work overlap phases B-H; phase I waits for it.  Returns (process, log
+    path)."""
+    log_path = root + ".log"
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "scripts", "make_adhoc_fixture_torch.py"), "--root", root,
+             "--num_docs", str(num_docs), "--num_indexes", "4"],
+            cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+    return proc, log_path
+
+
+def mesh_launch_flags(tmp, name):
+    """The launch flags of a process group of one rank (NCCL on the card)
+    with a 1x1 mesh, rendezvous in a fresh file."""
+    return ["--mesh", "1x1", "--coordinator_address", f"file://{os.path.join(tmp, name)}",
+            "--num_processes", "1", "--process_id", "0"]
+
+
+def i_adhoc(name, device, sizes, tmp, mesh):
+    """``rank_adhoc_torch.main`` twice: a crash after epoch 2, then
+    ``--resume``; on one device or on a 1x1 mesh."""
+    adhoc = load_source("rank_adhoc_torch", "scripts", "rank_adhoc_torch.py")
+    root, wd = os.path.join(tmp, "adhoc"), os.path.join(tmp, f"{name}_wd")
+    argv = ["--corpus", os.path.join(root, "repository"), "--topics", os.path.join(root, "topics.txt"),
+            "--qrels", os.path.join(root, "qrels.txt"), "--splits", os.path.join(root, "splits"),
+            "--workdir", wd, "--num_epochs", str(sizes["epochs"]), "--eval_every", "2",
+            "--checkpoint_every", "2", "--batch_size", str(sizes["batch"]),
+            "--word_repr_size", str(sizes["word_dim"]), "--entity_repr_size", str(sizes["entity_dim"]),
+            "--on_device_sampling", "--steps_per_call", str(sizes["steps_per_call"]),
+            "--stream_dtype", "bfloat16", "--window_sum_dtype", "bfloat16", "--device", str(device)]
+    stages, launches = [], {"sweep": 0, "cast": 0}
+    for stage, extra in ((1, ["--fail_after_epoch", "2"]), (2, ["--resume"])):
+        if mesh:
+            extra = extra + mesh_launch_flags(tmp, f"{name}_rendezvous{stage}")
+            distributed.reset_collective_log()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with captured_logs() as logs:
+            if stage == 1:
+                try:
+                    adhoc.main(argv + extra)
+                except RuntimeError as exc:
+                    if "simulated crash after epoch 2" not in str(exc):
+                        raise
+                else:
+                    raise AssertionError(f"{name}: stage 1 finished without the simulated crash")
+            elif adhoc.main(argv + extra) != 0:
+                raise AssertionError(f"{name}: the resumed stage failed")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        epochs = trained_epochs(logs)
+        steps = sum(n for _, _, n, _ in epochs)
+        got = read_launches(steps, f"{name} stage {stage}")
+        launches = {key: launches[key] + got[key] for key in launches}
+        if mesh:
+            log_collectives(f"{name} stage {stage}", steps)
+        want = [1, 2] if stage == 1 else [3, 4]
+        if [e for e, _, _, _ in epochs] != want or not all(np.isfinite(c) for _, c, _, _ in epochs):
+            raise AssertionError(f"{name} stage {stage}: epochs {epochs}, expected {want}")
+        resumed = [a[0] for a in logs.args("Resumed from epoch")]
+        if resumed != ([] if stage == 1 else [2]):
+            raise AssertionError(f"{name} stage {stage}: resumed from {resumed}")
+        stages.append(dict(wall_s=wall_s, epochs=[e for e, _, _, _ in epochs],
+                           ms_per_step=[1e3 * sec / n for _, _, n, sec in epochs],
+                           costs=[c for _, c, _, _ in epochs]))
+    with open(os.path.join(wd, "results.json")) as f:
+        results = json.load(f)
+    curve = [e for e, _ in results["validation_curve"]]
+    failures = []
+    if sorted(results) != ADHOC_RESULT_KEYS:
+        failures.append(f"results.json keys {sorted(results)}")
+    if curve != [2, 4] or results["best_epoch"] not in curve or results["resumed"] is not True:
+        failures.append(f"curve {results['validation_curve']}, best {results['best_epoch']}")
+    if not results["nvsm_test_map"] >= I_MIN_NVSM_MAP:
+        failures.append(f"NVSM test MAP {results['nvsm_test_map']} < {I_MIN_NVSM_MAP}")
+    stats = dict(stages=stages, results=results, launches=launches)
+    log(f"{name} " + json.dumps(stats))
+    if failures:
+        raise AssertionError(f"{name}: " + "; ".join(failures))
+    return stats
+
+
+def write_cranfield_shape(root, num_docs, num_topics, seed, vocab=8192, doc_len=96, head=80,
+                          topic_fraction=0.2, query_terms=5):
+    """A synthetic collection in the Cranfield layout (``cranfield.trectext``,
+    ``.topics``, ``.qrel``): every document belongs to a topic and draws a
+    fifth of its tokens from the topic's 80 head words, the rest from a
+    Zipf background; a query is 5 head words of its topic, whose documents
+    are its relevant ones."""
+    rng = np.random.RandomState(seed)
+    bg_p = 1.0 / np.arange(1, vocab + 1) ** 1.07
+    bg_p /= bg_p.sum()
+    heads = np.stack([rng.choice(vocab, head, replace=False) for _ in range(num_topics)])
+    doc_topic = rng.randint(0, num_topics, num_docs)
+    n_topic = int(doc_len * topic_fraction)
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "cranfield.trectext"), "w") as f:
+        for d in range(num_docs):
+            words = np.concatenate([heads[doc_topic[d]][rng.randint(0, head, n_topic)],
+                                    rng.choice(vocab, doc_len - n_topic, p=bg_p)])
+            rng.shuffle(words)
+            f.write(f"<DOC>\n<DOCNO>{d + 1}</DOCNO>\n<TEXT>\n"
+                    + " ".join(f"w{w}" for w in words) + "\n</TEXT>\n</DOC>\n")
+    with open(os.path.join(root, "cranfield.topics"), "w") as f:
+        f.writelines(f"{q + 1} " + " ".join(f"w{w}" for w in rng.choice(heads[q], query_terms,
+                                                                          replace=False)) + "\n"
+                     for q in range(num_topics))
+    with open(os.path.join(root, "cranfield.qrel"), "w") as f:
+        f.writelines(f"{q + 1} 0 {d + 1} 1\n" for q in range(num_topics)
+                     for d in np.flatnonzero(doc_topic == q))
+
+
+def i_run(main_fn, argv, what, steps_per_kernel=None):
+    """``main_fn(argv)`` with the launches counted: (results of the run's
+    results.json, trained epochs, launches, wall s)."""
+    torch.cuda.synchronize()
+    reset_launches()
+    logs, wall_s = run_command(main_fn, argv, what)
+    torch.cuda.synchronize()
+    epochs = trained_epochs(logs)
+    steps = sum(n for _, _, n, _ in epochs)
+    launches = read_launches(steps, what, steps_per_kernel)
+    if not epochs or not all(np.isfinite(c) for _, c, _, _ in epochs):
+        raise AssertionError(f"{what}: epochs {epochs}")
+    with open(os.path.join(argv[argv.index("--workdir") + 1], "results.json")) as f:
+        return json.load(f), epochs, launches, wall_s
+
+
+def phase_i3(device, sizes, tmp, seed):
+    """rank_cranfield_torch.main on a collection of Cranfield's size: LSE
+    (host-fed, batch 4096) and NVSM (batch 51200) at full width, the QLM
+    MAPs against the same call on the CPU, then NVSM on a 1x1 mesh."""
+    cranfield = load_source("rank_cranfield_torch", "scripts", "rank_cranfield_torch.py")
+    data = os.path.join(tmp, "cranfield")
+    write_cranfield_shape(data, sizes["cranfield_docs"], sizes["cranfield_topics"], seed)
+    common = ["--data_dir", data, "--num_epochs", str(sizes["cranfield_epochs"]),
+              "--stream_dtype", "bfloat16", "--window_sum_dtype", "bfloat16",
+              "--grid_cv_fusion", "off", *(["--quick"] if sizes["cranfield_quick"] else [])]
+    results, epochs, launches, wall_s = i_run(
+        cranfield.main, common + ["--workdir", os.path.join(tmp, "I3_wd"), "--device", str(device)],
+        "I3 LSE + NVSM")
+    cpu, _ = run_command(cranfield.main, ["--data_dir", data, "--workdir", os.path.join(tmp, "I3_cpu"),
+                                          "--models", "", "--device", "cpu"], "I3 QLM on the CPU")
+    with open(os.path.join(tmp, "I3_cpu", "results.json")) as f:
+        cpu_results = json.load(f)
+    distributed.reset_collective_log()
+    mesh_results, mesh_epochs, mesh_launches, mesh_wall_s = i_run(
+        cranfield.main, common + ["--workdir", os.path.join(tmp, "I3_mesh"), "--models", "nvsm",
+                                  "--device", str(device), *mesh_launch_flags(tmp, "I3_rendezvous")],
+        "I3 NVSM on a 1x1 mesh")
+    log_collectives("I3 mesh", sum(n for _, _, n, _ in mesh_epochs))
+    failures = []
+    for name in QLM_NAMES:
+        if not (results[name] == cpu_results[name] == mesh_results[name]):
+            failures.append(f"{name}: card {results[name]}, CPU {cpu_results[name]}, "
+                            f"mesh {mesh_results[name]}")
+    for got in (results, mesh_results):
+        if not all(0.0 <= v <= 1.0 for v in got.values()):
+            failures.append(f"a MAP outside [0, 1]: {got}")
+    if len(epochs) != 2 * sizes["cranfield_epochs"] or len(mesh_epochs) != sizes["cranfield_epochs"]:
+        failures.append(f"epochs {epochs} and {mesh_epochs}")
+    stats = dict(results=results, mesh_results=mesh_results, wall_s=wall_s, mesh_wall_s=mesh_wall_s,
+                 epochs=epochs, mesh_epochs=mesh_epochs)
+    log("I3 " + json.dumps(stats))
+    if failures:
+        raise AssertionError("I3: " + "; ".join(failures))
+    return {key: launches[key] + mesh_launches[key] for key in launches}
+
+
+def phase_i4(device, sizes, tmp, seed):
+    """product_substitutability_torch.main on a synthetic product fixture:
+    the TEXT_ENTITY_ENTITY_ENTITY composite at weight 0.1, full width,
+    host-fed, float32 streams (2 sweeps per step, no cast)."""
+    product = load_source("product_substitutability_torch", "scripts",
+                          "product_substitutability_torch.py")
+    paths = product.write_synthetic_fixture(os.path.join(tmp, "products"), sizes["products"],
+                                            sizes["product_topics"], seed=seed)
+    results, epochs, launches, wall_s = i_run(product.main, [
+        "--corpus", paths["corpus"], "--substitutes", paths["substitutes"],
+        "--resources", paths["resources"], "--workdir", os.path.join(tmp, "I4_wd"),
+        "--entity_similarity_weight", "0.1", "--num_epochs", str(sizes["product_epochs"]),
+        "--eval_every", "1", "--batch_size", str(sizes["batch"]),
+        "--word_repr_size", str(sizes["word_dim"]), "--entity_repr_size", str(sizes["entity_dim"]),
+        "--planted_split", paths["planted_split"], "--device", str(device),
+    ], "I4 Mix 'n Match", {"sweep": 2, "cast": 0})
+    stats = dict(results=results, epochs=epochs, wall_s=wall_s,
+                 ms_per_step=[1e3 * sec / n for _, _, n, sec in epochs])
+    log("I4 " + json.dumps(stats))
+    best = results["mix_n_match"]["best_epoch"]
+    if best not in range(1, sizes["product_epochs"] + 1):
+        raise AssertionError(f"I4: selected epoch {best}")
+    return launches
+
+
+def phase_i(device, sizes, tmp, fixture, seed):
+    """The evaluation pipelines: I1 the ad hoc protocol with a crash and
+    --resume on one device, I2 the same on a 1x1 mesh (held to I1), I3 the
+    Cranfield pipeline, I4 the Mix 'n Match protocol."""
+    proc, fixture_log = fixture
+    t0 = time.perf_counter()
+    if proc.wait(timeout=900) != 0:
+        with open(fixture_log) as f:
+            raise AssertionError(f"I: the ad hoc fixture failed:\n{f.read()[-4000:]}")
+    log(f"I waited {time.perf_counter() - t0:.1f}s for the ad hoc fixture")
+    t0 = time.perf_counter()
+    i1 = i_adhoc("I1", device, sizes, tmp, mesh=False)
+    i2 = i_adhoc("I2", device, sizes, tmp, mesh=True)
+    # A 1x1 mesh draws what one device draws but rounds otherwise on the
+    # card (PERF.md section 6, the mesh path): everything but the trained tables'
+    # numbers is held equal.
+    r1, r2 = i1["results"], i2["results"]
+    failures = [key for key in ("resumed", "num_docs", "qlm_jm_prf_test_map",
+                                "qlm_dirichlet_prf_test_map") if r2[key] != r1[key]]
+    if [s["epochs"] for s in i2["stages"]] != [s["epochs"] for s in i1["stages"]]:
+        failures.append("the trained epochs")
+    if [e for e, _ in r2["validation_curve"]] != [e for e, _ in r1["validation_curve"]]:
+        failures.append("the curve's epochs")
+    if failures:
+        raise AssertionError(f"I2 against I1: {failures}")
+    i12_s = time.perf_counter() - t0
+    launches = [i1["launches"], i2["launches"], phase_i3(device, sizes, tmp, seed),
+                phase_i4(device, sizes, tmp, seed)]
+    total = time.perf_counter() - t0
+    log(f"I done in {total:.1f}s (I1 + I2 {i12_s:.1f}s; budget {I_BUDGET_S:.0f}s)")
+    return {key: sum(p[key] for p in launches) for key in ("sweep", "cast")}
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1781,35 +2070,16 @@ def main():
         raise AssertionError("the C++ corpus reader did not build or load")
     log(f"A g++ build of the C++ corpus reader: {reader_build_s:.1f}s "
         f"({os.path.relpath(reader, ROOT)})")
-    phase_b0(device)
-
-    reset_launches()
-    stats, params_b, corpus_b = phase_b(device, CANONICAL)
-    log("B " + json.dumps(stats))
-    by_path = {"B": read_launches(stats["steps"], "B")}
-    phase_c(device, params_b, corpus_b)
-    del params_b
-    by_path["D1"] = phase_d1(device, CANONICAL, corpus_b)[1]
-    by_path["D2"] = phase_d2(device, CANONICAL, corpus_b)[1]
-    phase_e0(device)
-    by_path["E"] = phase_e(device, CANONICAL, corpus_b, args.seed)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s %(levelname)s: %(message)s")
     os.makedirs(BUILD, exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="phase_fg_", dir=BUILD)
+    tmp_i = tempfile.mkdtemp(prefix="phase_i_", dir=BUILD)
+    fixture = start_adhoc_fixture(os.path.join(tmp_i, "adhoc"), PHASE_I["adhoc_docs"])
     try:
-        t0 = time.perf_counter()
-        prefix, by_path["F"] = phase_f(device, CANONICAL, corpus_b, args.seed, tmp)
-        log(f"F done in {time.perf_counter() - t0:.1f}s")
-        t0 = time.perf_counter()
-        by_path["G"] = phase_g(device, CANONICAL, corpus_b, prefix, args.seed, tmp,
-                               reader_build_s)
-        log(f"G done in {time.perf_counter() - t0:.1f}s")
-        t0 = time.perf_counter()
-        by_path["H"] = phase_h(device, CANONICAL, corpus_b, tmp, args.seed)
-        log(f"H done in {time.perf_counter() - t0:.1f}s")
+        by_path = phases_b_to_i(device, args.seed, reader_build_s, tmp_i, fixture)
     finally:
-        shutil.rmtree(tmp)
+        if fixture[0].poll() is None:
+            fixture[0].kill()
+            fixture[0].wait()
+        shutil.rmtree(tmp_i)
     launches = {key: sum(p[key] for p in by_path.values()) for key in ("sweep", "cast")}
 
     meta = {
@@ -1828,6 +2098,39 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}), flush=True)
+
+
+def phases_b_to_i(device, seed, reader_build_s, tmp_i, fixture):
+    """Phases B0 to I; the launches of each path."""
+    phase_b0(device)
+    reset_launches()
+    stats, params_b, corpus_b = phase_b(device, CANONICAL)
+    log("B " + json.dumps(stats))
+    by_path = {"B": read_launches(stats["steps"], "B")}
+    phase_c(device, params_b, corpus_b)
+    del params_b
+    by_path["D1"] = phase_d1(device, CANONICAL, corpus_b)[1]
+    by_path["D2"] = phase_d2(device, CANONICAL, corpus_b)[1]
+    phase_e0(device)
+    by_path["E"] = phase_e(device, CANONICAL, corpus_b, seed)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(levelname)s: %(message)s")
+    tmp = tempfile.mkdtemp(prefix="phase_fg_", dir=BUILD)
+    try:
+        t0 = time.perf_counter()
+        prefix, by_path["F"] = phase_f(device, CANONICAL, corpus_b, seed, tmp)
+        log(f"F done in {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        by_path["G"] = phase_g(device, CANONICAL, corpus_b, prefix, seed, tmp, reader_build_s)
+        log(f"G done in {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        by_path["H"] = phase_h(device, CANONICAL, corpus_b, tmp, seed)
+        log(f"H done in {time.perf_counter() - t0:.1f}s")
+    finally:
+        shutil.rmtree(tmp)
+    del corpus_b
+    by_path["I"] = phase_i(device, PHASE_I, tmp_i, fixture, seed)
+    return by_path
 
 
 if __name__ == "__main__":

@@ -11,6 +11,16 @@ each ± evaluation score the same draws.  The generator is left in the
 state it had before the check, so the training step that follows draws
 what it would have drawn without the check.
 
+Under a mesh (``mesh=``, a ``parallel.mesh.Mesh``; every rank calls the
+check with its shards and its rows of the batch) the analytic gradients are
+the mesh step's, put together into full tables on every rank: the word
+gradient summed over the data axis, the entity descriptors (global on every
+rank) scattered into the whole padded table, the padded rows cut off.  The
+central differences are of the global cost: the single-device cost of the
+fetched tables on the global batch (gathered over the data axis), which
+every rank evaluates alike, as the JAX trainer checks the step of its
+global arrays.  ``num_checked`` counts the full, unpadded tables.
+
 Run on the CPU in float64 for float64 fidelity.
 """
 
@@ -25,6 +35,7 @@ from cunvsm_torch.config import ModelDesc, TrainConfig
 from cunvsm_torch.models.objectives import AscentGrads
 from cunvsm_torch.models.params import ModelParams
 from cunvsm_torch.optim.updates import _scatter_add
+from cunvsm_torch.parallel.mesh import fetch_params
 from cunvsm_torch.train.step import (
     ObjectiveKind,
     compute_cost_and_grads,
@@ -32,18 +43,29 @@ from cunvsm_torch.train.step import (
 )
 
 
-def densify_grads(params: ModelParams, grads: AscentGrads) -> ModelParams:
-    """Scatter sparse descriptors into dense per-table ascent gradients."""
+def densify_grads(params: ModelParams, grads: AscentGrads, mesh=None,
+                  num_entities: Optional[int] = None) -> ModelParams:
+    """Scatter sparse descriptors into dense per-table ascent gradients.
+    Under a ``mesh`` (``params`` the rank's shards) the tables are the full
+    ones, the same on every rank, with ``num_entities`` entity rows."""
 
-    def dense(table, descs):
-        out = torch.zeros_like(table)
+    def dense(table, descs, rows):
+        out = table.new_zeros((rows, *table.shape[1:]))
         for desc in descs:
             _scatter_add(out, desc, 1.0)
         return out
 
+    word = dense(params.word_reprs, grads.word, params.word_reprs.shape[0])
+    entity_rows = params.entity_reprs.shape[0] * (1 if mesh is None else mesh.model)
+    entity = dense(params.entity_reprs, grads.entity, entity_rows)
+    if mesh is not None:
+        # A data group's word descriptors are its batch rows'; the entity
+        # descriptors index global rows and are the same on every rank.
+        word = mesh.all_reduce(word, "data", "gradcheck_word")
+        entity = entity[:num_entities]
     return ModelParams(
-        word_reprs=dense(params.word_reprs, grads.word),
-        entity_reprs=dense(params.entity_reprs, grads.entity),
+        word_reprs=word,
+        entity_reprs=entity,
         transform_w=(
             grads.transform_w if grads.transform_w is not None
             else torch.zeros_like(params.transform_w)
@@ -53,6 +75,17 @@ def densify_grads(params: ModelParams, grads: AscentGrads) -> ModelParams:
             else torch.zeros_like(params.transform_b)
         ),
     )
+
+
+def _global_batch(mesh, batch):
+    """The global batch from the data groups' rows, on every rank: each
+    field gathered over the data axis (the rows' order is the data index's,
+    as ``parallel.mesh.local_batch`` cut them)."""
+    if isinstance(batch, tuple) and not hasattr(batch, "_fields"):
+        return tuple(_global_batch(mesh, b) for b in batch)
+    return type(batch)(*(
+        None if t is None else mesh.all_gather(t, "data", "gradcheck_batch") for t in batch
+    ))
 
 
 def check_gradients(
@@ -67,13 +100,15 @@ def check_gradients(
     rtol: float = 1e-4,
     atol: float = 1e-8,
     num_entities: Optional[int] = None,
+    mesh=None,
 ) -> Tuple[int, float]:
     """Central-difference check of every parameter.
 
     Returns (num_checked, max_relative_error); raises AssertionError on
     disagreement.  The analytic gradients are *ascent* gradients while the
     cost function is the descent objective, so the expected relation is
-    analytic = -(dcost/dtheta).
+    analytic = -(dcost/dtheta).  ``mesh``: see the module doc (every rank
+    calls the check; ``num_entities``, the real entity count, is required).
     """
     state = generator.get_state() if generator is not None else None
 
@@ -84,9 +119,16 @@ def check_gradients(
     cost_fn = make_optimized_cost_fn(desc, cfg, kind, device, generator)
     replay()
     _, grads = compute_cost_and_grads(
-        kind, params, batch, generator, device, desc, cfg, num_entities
+        kind, params, batch, generator, device, desc, cfg, num_entities, mesh=mesh
     )
-    dense = densify_grads(params, grads)
+    if mesh is not None:
+        if not num_entities:
+            raise ValueError("a check under a mesh needs num_entities, the real entity count")
+        dense = densify_grads(params, grads, mesh, num_entities)
+        params = fetch_params(mesh, params, num_entities)
+        batch = _global_batch(mesh, batch)
+    else:
+        dense = densify_grads(params, grads)
 
     num_checked = 0
     max_rel_err = 0.0

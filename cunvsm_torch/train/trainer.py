@@ -48,7 +48,8 @@ epoch of the host source, so training starts at the next draw.
 ``profile_dir`` records the first trained epoch with ``torch.profiler``
 and writes a Chrome trace there; ``check_gradients`` holds every host-fed
 step's gradients to central finite differences first
-(``train/gradcheck.py``).
+(``train/gradcheck.py``; under a mesh the mesh step's gradients, put
+together into full tables, against differences of the global cost).
 
 Under a mesh (``mesh=``, a ``parallel.mesh.Mesh``; one process per device,
 every process calls ``train_model`` with the same arguments) the entity
@@ -177,11 +178,6 @@ def _check_options(cfg, kind, on_device_sampling, steps_per_call, checkpoint_eve
                 f"{mesh.data}x{mesh.model}): the full_adam word "
                 f"accumulation shards the update stream over every mesh "
                 f"axis"
-            )
-        if check_gradients:
-            raise ValueError(
-                "check_gradients compares one device's gradients with finite "
-                "differences; run it without a mesh"
             )
 
 
@@ -467,7 +463,8 @@ def train_model(
                         reseed(STEP_STREAM, total_batches)
                     if check_gradients:
                         gradcheck.check_gradients(kind, params, batch, generator, device,
-                                                  desc, cfg, num_entities=corpus.num_docs)
+                                                  desc, cfg, num_entities=corpus.num_docs,
+                                                  mesh=mesh)
                     cost = step(params, opt_state, batch)
                     costs.append(cost.reshape(1))
                     total_batches += 1

@@ -34,6 +34,7 @@ from cunvsm_torch.optim.updates import opt_state_from_numpy  # noqa: E402
 from cunvsm_torch.parallel import distributed, mesh as pmesh  # noqa: E402
 from cunvsm_torch.parallel.query import make_sharded_scorer  # noqa: E402
 from cunvsm_torch.query.engine import QueryEngine  # noqa: E402
+from cunvsm_torch.train import gradcheck  # noqa: E402
 from cunvsm_torch.train.step import ObjectiveKind  # noqa: E402
 from cunvsm_torch.train.trainer import train_model  # noqa: E402
 
@@ -172,6 +173,39 @@ def run_train(sc, mesh, outdir):
     return out
 
 
+def run_gradcheck(sc, mesh, outdir):
+    """(num_checked, max_relative_error) of ``train/gradcheck.py`` under the
+    mesh: of one check of full ``params`` (cut to the rank's shards) on a
+    global ``batch`` (cut to its rows) when the scenario gives them, else of
+    the check before every step of ``train_model(mesh=,
+    check_gradients=True)``."""
+    if "params" in sc:
+        kind = ObjectiveKind(sc["kind"])
+        generator = torch.Generator().manual_seed(sc["generator_seed"])
+        checked = gradcheck.check_gradients(
+            kind, pmesh.shard_params(mesh, params_from_numpy(sc["params"])),
+            pmesh.local_batch(mesh, port_batch(sc["batch"], kind)), generator, "cpu",
+            sc["desc"], sc["cfg"], num_entities=sc["num_entities"], mesh=mesh,
+        )
+        return dict(checks=np.asarray([checked], dtype=np.float64))
+    checks = []
+    check = gradcheck.check_gradients
+
+    def recording(*args, **kwargs):
+        checks.append(check(*args, **kwargs))
+        return checks[-1]
+
+    gradcheck.check_gradients = recording
+    try:
+        result = train_model(sc["desc"], sc["cfg"], sc["corpus"], torch.device("cpu"),
+                             dtype=torch.float64, mesh=mesh, check_gradients=True,
+                             **sc.get("kwargs", {}))
+    finally:
+        gradcheck.check_gradients = check
+    return dict(checks=np.asarray(checks, dtype=np.float64),
+                costs=np.asarray(result.epoch_costs))
+
+
 def run_scorer(sc, mesh, outdir):
     """``make_sharded_scorer`` for every k of ``ks``, the shard cut once and
     reused; the collective log of each call."""
@@ -209,7 +243,8 @@ def run_engine(sc, mesh, outdir):
     return out
 
 
-RUNNERS = {"steps": run_steps, "train": run_train, "scorer": run_scorer, "engine": run_engine}
+RUNNERS = {"steps": run_steps, "train": run_train, "gradcheck": run_gradcheck,
+           "scorer": run_scorer, "engine": run_engine}
 
 
 def main(argv=None) -> int:

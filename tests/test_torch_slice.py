@@ -10,6 +10,7 @@ hygiene.
   commands opens no file of the JAX package.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -186,6 +187,12 @@ JAX_FREE_SOURCES = (
     os.path.join("scripts", "collection_scale_study_torch.py"),
     os.path.join("scripts", "repeat_phase_f.py"),
     os.path.join("scripts", "run_to_run_spread_torch.py"),
+    os.path.join("scripts", "rank_adhoc_torch.py"),
+    os.path.join("scripts", "rank_cranfield_torch.py"),
+    os.path.join("scripts", "product_substitutability_torch.py"),
+    os.path.join("scripts", "make_adhoc_fixture.py"),
+    os.path.join("scripts", "make_adhoc_fixture_torch.py"),
+    os.path.join("tests", "indri_fixture.py"),
     os.path.join("tests", "_torch_distributed_worker.py"),
     os.path.join("tests_card", "conftest.py"), os.path.join("tests_card", "card_parity.py"),
     os.path.join("tests_card", "test_card_parallel.py"),
@@ -380,3 +387,96 @@ def test_mesh_paths_open_no_file_of_the_jax_package(tmp_path):
     )
     assert out.returncode == 0, out.stderr
     assert os.path.exists(run)
+
+
+def test_pipelines_open_no_file_of_the_jax_package(tmp_path):
+    """The three evaluation pipelines, run in a fresh interpreter with an
+    audit hook on ``open`` (``--device cpu``, a tiny collection), read no
+    file under ``cunvsm_tpu/`` and load no forbidden package."""
+    from tests.test_torch_scripts import write_adhoc_collection
+
+    root = tmp_path / "collection"
+    root.mkdir()
+    write_adhoc_collection(str(root))
+    small = ["--word_repr_size", "8", "--entity_repr_size", "8", "--batch_size", "256",
+             "--num_epochs", "2", "--eval_every", "2", "--device", "cpu"]
+    adhoc = ["--corpus", str(root / "repo"), "--topics", str(root / "topics.txt"),
+             "--qrels", str(root / "qrels.txt"), "--splits", str(root / "splits"),
+             "--workdir", str(tmp_path / "adhoc"), *small]
+    cranfield = ["--data_dir", str(root / "cranfield"), "--workdir", str(tmp_path / "cranfield"),
+                 "--quick", "--num_epochs", "1", "--models", "nvsm", "--device", "cpu"]
+    code = (
+        "import importlib.util, os, sys\n"
+        "before = set(sys.modules)\n"
+        "opened = []\n"
+        "sys.addaudithook(lambda e, a: opened.append(str(a[0])) if e == 'open' else None)\n"
+        "def load(name):\n"
+        "    spec = importlib.util.spec_from_file_location(name, os.path.join('scripts', name + '.py'))\n"
+        "    module = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(module)\n"
+        "    return module\n"
+        "product = load('product_substitutability_torch')\n"
+        f"paths = product.write_synthetic_fixture({str(tmp_path / 'products')!r}, 60, 4,\n"
+        "                                        relevant_per_topic=4)\n"
+        f"assert load('rank_adhoc_torch').main({adhoc!r}) == 0\n"
+        f"assert load('rank_cranfield_torch').main({cranfield!r}) == 0\n"
+        "assert product.main(['--corpus', paths['corpus'], '--substitutes', paths['substitutes'],\n"
+        f"    '--resources', paths['resources'], '--workdir', {str(tmp_path / 'product')!r},\n"
+        f"    *{small!r}]) == 0\n"
+        "bad = [p for p in opened if 'cunvsm_tpu' in p]\n"
+        "assert not bad, bad\n"
+        f"bad = sorted(m for m in set(sys.modules) - before\n"
+        f"             if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-4000:]
+    for path in ("adhoc/results.json", "cranfield/results.json", "product/results.json"):
+        assert os.path.exists(tmp_path / path), path
+
+
+def test_rehearsal_script_runs_only_the_port():
+    """``scripts/rehearse_adhoc_torch.sh`` runs the port's ad hoc script and
+    the fixture generator (through its launcher), and its inline Python
+    imports only the standard library."""
+    import ast
+    import re
+
+    with open(os.path.join(REPO, "scripts", "rehearse_adhoc_torch.sh")) as f:
+        text = f.read()
+    assert "cunvsm_tpu" not in text and "jax" not in text
+    scripts = re.findall(r"python3\s+(scripts/\S+\.py)", text)
+    assert sorted(set(scripts)) == ["scripts/make_adhoc_fixture_torch.py",
+                                    "scripts/rank_adhoc_torch.py"]
+    inline = re.search(r"<<'EOF'[^\n]*\n(.*?)\nEOF\n", text, re.DOTALL).group(1)
+    for node in ast.walk(ast.parse(inline)):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            for name in ([a.name for a in node.names] if isinstance(node, ast.Import)
+                         else [node.module]):
+                assert name.split(".")[0] in sys.stdlib_module_names, name
+
+
+def test_fixture_launcher_finds_the_checkouts_tests(tmp_path):
+    """``scripts/make_adhoc_fixture_torch.py`` runs the unchanged generator
+    even where a regular package named ``tests`` comes first on the path
+    (one is planted here), and writes the fixture."""
+    shadow = tmp_path / "shadow" / "tests"
+    shadow.mkdir(parents=True)
+    (shadow / "__init__.py").write_text("")
+    root = tmp_path / "fixture"
+    env = dict(os.environ, PYTHONPATH=str(tmp_path / "shadow"))
+    plain = subprocess.run(
+        [sys.executable, os.path.join("scripts", "make_adhoc_fixture.py"), "--root", str(root),
+         "--num_docs", "64", "--num_indexes", "2", "--num_topics", "8", "--num_queries", "8"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert plain.returncode != 0 and "tests.indri_fixture" in plain.stderr
+    out = subprocess.run(
+        [sys.executable, os.path.join("scripts", "make_adhoc_fixture_torch.py"), "--root",
+         str(root), "--num_docs", "64", "--num_indexes", "2", "--num_topics", "8",
+         "--num_queries", "8"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert json.loads((root / "fixture.json").read_text())["num_docs"] == 64
+    assert sorted(os.listdir(root / "repository" / "index")) == ["0", "1"]

@@ -10,7 +10,8 @@
 * ``train/gradcheck.py``: every objective kind and negative layout passes
   at float64, with the leaf counts of the JAX package's check on the same
   inputs; a gradient perturbed by 1e-3 raises; ``train_model`` runs the
-  check before every host-fed step and trains what it trains without it.
+  check before every host-fed step and trains what it trains without it
+  (under a mesh: ``tests/test_torch_gradcheck_mesh.py``).
 """
 
 import json
