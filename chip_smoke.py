@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
-    python3 chip_smoke.py [--seed N]     # about seven minutes
+    python3 chip_smoke.py [--seed N]     # about nine minutes
 
 It builds both kernels from the sources in the checkout: the sweep with
 Triton (its cache goes under build/triton) and the cast with nvcc (into
@@ -151,7 +151,28 @@ runs the port's main path:
      width: the TEXT_ENTITY_ENTITY_ENTITY composite at weight 0.1 for 2
      epochs, costs finite, the selected epoch one that was validated, 2
      sweeps and no cast per step (float32 streams).  Its time is printed
-     beside its budget, I_BUDGET_S.
+     beside its budget, I_BUDGET_S;
+  J  the last scripts of the JAX package, called in process (PHASE_J): J1
+     ``scripts/visualize_reuters_torch.py`` on synthetic SGML of
+     Reuters-21578's size (21,578 articles, a tenth without a topic, the
+     others in 10 topic classes, 64 words each, made from --seed) at the
+     script's widths (d 300 -> 256, batch 4096, full_adam with float32
+     streams: 2 sweeps and no cast per step) for 3 epochs: the cosine class
+     silhouette must rise from epoch 1 to 3; the t-SNE plots are skipped
+     and logged where scikit-learn or matplotlib is missing; J2
+     ``scripts/quality_seeds_torch.py --config auto`` on I3's Cranfield
+     shape, seeds 1 and 2, 3 epochs, the runs dumped: its lines read back
+     by the unchanged ``scripts/quality_stats.py``, every MAP in [0, 1],
+     every dumped run read back with at most 1000 documents a topic; J3
+     ``scripts/fusion_study_torch.py`` over J2's runs, its default cells;
+     J4 ``scripts/e2e_throughput_torch.py`` on 65,536 Zipf documents x 120
+     tokens, canonical width, 3 epochs of 142 steps in calls of K = 8, a
+     dump every 2 epochs: its output line printed, the model files of
+     epochs 2 and 3 read back; J5 ``scripts/bench_query_torch.py`` at its
+     defaults (262,144 documents, top 1000), its lines printed.  J1, J2 and
+     J4 hold their launches per step to the rule of their configuration
+     (``expected_launches``).  Its time is printed beside its budget,
+     J_BUDGET_S.
 
 Without a CUDA device it exits with an error before printing any result.
 The last line of its output is one JSON object with "ok" and the device;
@@ -1919,18 +1940,26 @@ def write_cranfield_shape(root, num_docs, num_topics, seed, vocab=8192, doc_len=
                      for d in np.flatnonzero(doc_topic == q))
 
 
-def i_run(main_fn, argv, what, steps_per_kernel=None):
-    """``main_fn(argv)`` with the launches counted: (results of the run's
-    results.json, trained epochs, launches, wall s)."""
+def counted_run(main_fn, argv, what, rule):
+    """``main_fn(argv)`` in process with the kernels' launches counted from
+    0: (log records, trained epochs, launches, wall s).  ``rule()``, called
+    after the run, gives the launches per step that ``read_launches`` holds
+    them to; every trained epoch's cost must be finite."""
     torch.cuda.synchronize()
     reset_launches()
     logs, wall_s = run_command(main_fn, argv, what)
     torch.cuda.synchronize()
     epochs = trained_epochs(logs)
-    steps = sum(n for _, _, n, _ in epochs)
-    launches = read_launches(steps, what, steps_per_kernel)
+    launches = read_launches(sum(n for _, _, n, _ in epochs), what, rule())
     if not epochs or not all(np.isfinite(c) for _, c, _, _ in epochs):
         raise AssertionError(f"{what}: epochs {epochs}")
+    return logs, epochs, launches, wall_s
+
+
+def i_run(main_fn, argv, what, steps_per_kernel=None):
+    """``main_fn(argv)`` with the launches counted: (results of the run's
+    results.json, trained epochs, launches, wall s)."""
+    _, epochs, launches, wall_s = counted_run(main_fn, argv, what, lambda: steps_per_kernel)
     with open(os.path.join(argv[argv.index("--workdir") + 1], "results.json")) as f:
         return json.load(f), epochs, launches, wall_s
 
@@ -2034,6 +2063,246 @@ def phase_i(device, sizes, tmp, fixture, seed):
     return {key: sum(p[key] for p in launches) for key in ("sweep", "cast")}
 
 
+# Phase J: the last scripts of the JAX package.  The Reuters pipeline runs
+# at its default widths (d 300 -> 256, batch 4096) on synthetic SGML of
+# Reuters-21578's 21,578 articles in 10 topic classes, cut in depth from 15
+# epochs to 3 and in length to 64 words an article.  The quality campaign
+# trains the canonical NVSM (bfloat16 streams) on the Cranfield shape for 3
+# epochs (cut from 100) and 2 seeds (cut from 8).  The throughput tool runs
+# 65,536 documents x 120 tokens (cut from 262,144) for 3 epochs (cut from
+# 10): 142 steps an epoch in calls of K = 8, a dump every 2 epochs.  The
+# serving benchmark runs at its defaults (262,144 documents, top 1000).
+PHASE_J = dict(
+    reuters_articles=21578, reuters_classes=10, reuters_words=64, reuters_epochs=3,
+    reuters_batch=4096, reuters_word_dim=300, reuters_entity_dim=256,
+    cranfield_docs=1398, cranfield_topics=225, quality_epochs=3, quality_seeds="1,2",
+    e2e_docs=65536, e2e_doc_len=120, e2e_epochs=3, e2e_steps_per_call=8,
+    e2e_checkpoint_every=2, e2e_batch=51200, e2e_word_dim=300, e2e_entity_dim=256,
+    bench_docs=262144, bench_top_k=1000,
+)
+J_BUDGET_S = 90.0
+QUALITY_KEYS = sorted(["config", "seed", "map", "minutes", "fusion_dirichlet_prf_map",
+                       "fusion_jm_prf_map"])
+FUSION_KEYS = sorted(["num_nvsm_runs", "qlm_jm_prf_map", "unsupervised_alpha0.5",
+                      "supervised_cv20_step0.01"])
+
+
+def write_reuters_shape(path, num_articles, num_classes, num_words, seed, class_vocab=300,
+                        background_vocab=4000, class_share=0.4):
+    """Synthetic SGML in the Reuters-21578 layout: every tenth article has
+    no topic; the others have one of ``num_classes``, and draw
+    ``class_share`` of their words from their topic's ``class_vocab``, the
+    rest from a Zipf background."""
+    rng = np.random.RandomState(seed)
+    bg_p = 1.0 / np.arange(1, background_vocab + 1) ** 1.07
+    bg_p /= bg_p.sum()
+    n_class = int(num_words * class_share)
+    with open(path, "w", encoding="latin1") as f:
+        for i in range(num_articles):
+            words = [f"bg{w}" for w in rng.choice(background_vocab, num_words, p=bg_p)]
+            topics = ""
+            if i % 10:
+                c = rng.randint(num_classes)
+                words[:n_class] = [f"t{c}w{w}" for w in rng.randint(0, class_vocab, n_class)]
+                rng.shuffle(words)
+                topics = f"<D>topic{c}</D>"
+            f.write(f'<REUTERS NEWID="{i + 1}">\n<TOPICS>{topics}</TOPICS>\n'
+                    f"<TEXT>\n<TITLE>article {i + 1}</TITLE>\n<BODY>{' '.join(words)}</BODY>\n"
+                    "</TEXT>\n</REUTERS>\n")
+
+
+@contextlib.contextmanager
+def recorded_trainings(module):
+    """``module.train_model`` wrapped: yields the list of (desc, cfg, number
+    of documents) of its calls."""
+    calls, real = [], module.train_model
+
+    def spy(desc, cfg, corpus, *args, **kwargs):
+        calls.append((desc, cfg, corpus.num_docs))
+        return real(desc, cfg, corpus, *args, **kwargs)
+
+    module.train_model = spy
+    try:
+        yield calls
+    finally:
+        module.train_model = real
+
+
+def j_run(script, argv, what, want_per_step=None):
+    """``script.main(argv)`` in process, its trainings' launches counted and
+    held to the rule of their configuration (and to ``want_per_step``):
+    (log records, trained epochs, launches, wall s)."""
+
+    def rule():
+        rules = [expected_launches(cfg, desc, n) for desc, cfg, n in calls]
+        if not calls or any(r != rules[0] for r in rules):
+            raise AssertionError(f"{what}: trainings {len(calls)}, launch rules {rules}")
+        if want_per_step and rules[0] != want_per_step:
+            raise AssertionError(f"{what}: launch rule {rules[0]}, expected {want_per_step}")
+        return rules[0]
+
+    with recorded_trainings(script) as calls:
+        logs, epochs, launches, wall_s = counted_run(script.main, argv, what, rule)
+    desc, cfg, n = calls[0]
+    log(f"{what}: {len(epochs)} epochs, ms/step "
+        + ", ".join(f"{1e3 * sec / steps:.2f}" for _, _, steps, sec in epochs)
+        + f"; negatives {negative_layout(cfg, desc, n)}; wall {wall_s:.1f}s")
+    return logs, epochs, launches, wall_s
+
+
+def phase_j1(device, sizes, tmp, seed):
+    """``scripts/visualize_reuters_torch.py``: full_adam with float32
+    streams (2 sweeps, no cast per step); the class silhouette must rise
+    from the first epoch to the last."""
+    reuters = load_source("visualize_reuters_torch", "scripts", "visualize_reuters_torch.py")
+    sgm, wd = os.path.join(tmp, "reuters.sgm"), os.path.join(tmp, "J1_wd")
+    write_reuters_shape(sgm, sizes["reuters_articles"], sizes["reuters_classes"],
+                        sizes["reuters_words"], seed)
+    logs, epochs, launches, wall_s = j_run(reuters, [
+        "--sgm", sgm, "--workdir", wd, "--num_epochs", str(sizes["reuters_epochs"]),
+        "--batch_size", str(sizes["reuters_batch"]),
+        "--word_repr_size", str(sizes["reuters_word_dim"]),
+        "--entity_repr_size", str(sizes["reuters_entity_dim"]), "--device", str(device)],
+        "J1 Reuters", {"sweep": 2, "cast": 0})
+    with open(os.path.join(wd, "metrics.json")) as f:
+        metrics = json.load(f)
+    curve = metrics["class_silhouette_cosine_by_epoch"]
+    plots = sorted(os.listdir(os.path.join(wd, "plots")))
+    log("J1 " + json.dumps(dict(metrics, plots=len(plots),
+                               plotting=reuters.missing_plot_library() or "available")))
+    failures = []
+    if metrics["num_classes"] != sizes["reuters_classes"]:
+        failures.append(f"{metrics['num_classes']} classes")
+    if [e for e, _ in curve] != list(range(1, sizes["reuters_epochs"] + 1)):
+        failures.append(f"the curve's epochs {curve}")
+    elif not curve[-1][1] > curve[0][1]:
+        failures.append(f"the silhouette did not rise: {curve}")
+    skipped = [r for r in logs.records if r.msg.startswith("No t-SNE plots")]
+    if reuters.missing_plot_library() and (plots or len(skipped) != 1):
+        failures.append(f"plots {plots} and {len(skipped)} warnings without the plotting "
+                        "libraries")
+    if failures:
+        raise AssertionError("J1: " + "; ".join(failures))
+    return launches
+
+
+def phase_j2(device, sizes, tmp, seed):
+    """``scripts/quality_seeds_torch.py --config auto`` on the Cranfield
+    shape, read back by the unchanged ``scripts/quality_stats.py``; returns
+    the launches and the directory of the dumped runs."""
+    quality = load_source("quality_seeds_torch", "scripts", "quality_seeds_torch.py")
+    data, out, runs = (os.path.join(tmp, name) for name in ("cranfield", "J2.jsonl", "J2_runs"))
+    write_cranfield_shape(data, sizes["cranfield_docs"], sizes["cranfield_topics"], seed)
+    _, epochs, launches, wall_s = j_run(quality, [
+        "--data_dir", data, "--out", out, "--config", "auto", "--seeds", sizes["quality_seeds"],
+        "--num_epochs", str(sizes["quality_epochs"]), "--dump_runs", runs,
+        "--device", str(device)], "J2 quality campaign")
+    with open(out) as f:
+        lines = [json.loads(line) for line in f]
+    stats = subprocess.run([sys.executable, os.path.join(ROOT, "scripts", "quality_stats.py"), out,
+                            "--baseline", "auto"], capture_output=True, text=True, timeout=120)
+    log("J2 " + json.dumps(lines))
+    log("J2 quality_stats.py: " + stats.stdout.strip().replace("\n", " | "))
+    seeds = [int(s) for s in sizes["quality_seeds"].split(",")]
+    failures = []
+    if stats.returncode != 0 or "auto" not in stats.stdout:
+        failures.append(f"quality_stats.py exited {stats.returncode}: {stats.stderr[-2000:]}")
+    if [line["seed"] for line in lines] != seeds or len(epochs) != len(seeds) * sizes[
+            "quality_epochs"]:
+        failures.append(f"seeds {[line['seed'] for line in lines]}, epochs {len(epochs)}")
+    for line in lines:
+        if sorted(line) != QUALITY_KEYS or not all(
+                0.0 <= line[k] <= 1.0 for k in QUALITY_KEYS if k.endswith("map")):
+            failures.append(f"line {line}")
+    for seed in seeds:
+        run = read_run(os.path.join(runs, f"nvsm_auto_s{seed}.run"))
+        if len(run) != sizes["cranfield_topics"] or max(map(len, run.values())) > 1000:
+            failures.append(f"run of seed {seed}: {len(run)} topics")
+    if failures:
+        raise AssertionError("J2: " + "; ".join(failures))
+    return launches, runs, data
+
+
+def phase_j3(runs, data, tmp):
+    """``scripts/fusion_study_torch.py`` over J2's runs, its default cells
+    (host work only)."""
+    fusion = load_source("fusion_study_torch", "scripts", "fusion_study_torch.py")
+    out = os.path.join(tmp, "J3.json")
+    with contextlib.redirect_stdout(open(os.devnull, "w")):
+        _, wall_s = run_command(fusion.main, ["--data_dir", data, "--runs_dir", runs,
+                                              "--out", out], "J3 fusion study")
+    with open(out) as f:
+        results = json.load(f)
+    log(f"J3 ({wall_s:.1f}s) " + json.dumps(results))
+    cells = [results[k][s] for k in FUSION_KEYS[2:] for s in ("mean", "min", "max")]
+    if (sorted(results) != FUSION_KEYS or results["num_nvsm_runs"] != len(os.listdir(runs))
+            or not all(0.0 <= v <= 1.0 for v in cells + [results["qlm_jm_prf_map"]])):
+        raise AssertionError(f"J3: {results}")
+
+
+def phase_j4(device, sizes, tmp):
+    """``scripts/e2e_throughput_torch.py``: on-device sampling, bfloat16
+    streams, the async writer; the model files of the dump epochs read
+    back."""
+    e2e = load_source("e2e_throughput_torch", "scripts", "e2e_throughput_torch.py")
+    out, wd = os.path.join(tmp, "J4.json"), os.path.join(tmp, "J4_wd")
+    _, epochs, launches, wall_s = j_run(e2e, [
+        "--out", out, "--workdir", wd, "--num_docs", str(sizes["e2e_docs"]),
+        "--doc_len", str(sizes["e2e_doc_len"]), "--epochs", str(sizes["e2e_epochs"]),
+        "--steps_per_call", str(sizes["e2e_steps_per_call"]),
+        "--checkpoint_every", str(sizes["e2e_checkpoint_every"]),
+        "--batch_size", str(sizes["e2e_batch"]), "--word_repr_size", str(sizes["e2e_word_dim"]),
+        "--entity_repr_size", str(sizes["e2e_entity_dim"]), "--device", str(device)],
+        "J4 end-to-end throughput")
+    with open(out) as f:
+        result = json.load(f)
+    log(f"J4: {result['value']} pairs/s steady, epochs {result['epoch_wall_s']} s, writer drain "
+        f"{result['writer_drain_s']} s ({result['device']})")
+    failures = []
+    steps = result["steps_per_epoch"]
+    if [n for _, _, n, _ in epochs] != [steps] * sizes["e2e_epochs"]:
+        failures.append(f"epochs {epochs}, {steps} steps an epoch")
+    if not (result["value"] and np.isfinite(result["final_cost"])):
+        failures.append(f"value {result['value']}, final cost {result['final_cost']}")
+    dumps = [e for e in range(1, sizes["e2e_epochs"] + 1)
+             if e % sizes["e2e_checkpoint_every"] == 0 or e == sizes["e2e_epochs"]]
+    for epoch in dumps:
+        params = checkpoint.load_model_hdf5(os.path.join(wd, "model"), epoch, device)
+        tables = (params.word_reprs, params.entity_reprs, params.transform_w, params.transform_b)
+        if (params.entity_reprs.shape != (sizes["e2e_docs"], sizes["e2e_entity_dim"])
+                or not all(bool(torch.isfinite(t).all()) for t in tables)):
+            failures.append(f"the model file of epoch {epoch}")
+    if failures:
+        raise AssertionError("J4: " + "; ".join(failures))
+    return launches
+
+
+def phase_j5(device, sizes):
+    """``scripts/bench_query_torch.py`` at its defaults: float32 and
+    bfloat16 documents, 1 and 16 queries (no kernel of the port)."""
+    bench = load_source("bench_query_torch", "scripts", "bench_query_torch.py")
+    _, wall_s = run_command(bench.main, ["--docs", str(sizes["bench_docs"]),
+                                         "--top_k", str(sizes["bench_top_k"]),
+                                         "--device", str(device)], "J5 serving latency")
+    log(f"J5 done in {wall_s:.1f}s")
+
+
+def phase_j(device, sizes, tmp, seed):
+    """The last scripts of the JAX package, called in process: J1 the
+    Reuters pipeline, J2 the quality campaign, J3 the fusion study over
+    J2's runs, J4 the end-to-end throughput tool, J5 the serving-latency
+    benchmark."""
+    t0 = time.perf_counter()
+    j1 = phase_j1(device, sizes, tmp, seed)
+    j2, runs, data = phase_j2(device, sizes, tmp, seed)
+    phase_j3(runs, data, tmp)
+    j4 = phase_j4(device, sizes, tmp)
+    phase_j5(device, sizes)
+    total = time.perf_counter() - t0
+    log(f"J done in {total:.1f}s (budget {J_BUDGET_S:.0f}s)")
+    return {key: j1[key] + j2[key] + j4[key] for key in ("sweep", "cast")}
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2101,7 +2370,7 @@ def main():
 
 
 def phases_b_to_i(device, seed, reader_build_s, tmp_i, fixture):
-    """Phases B0 to I; the launches of each path."""
+    """Phases B0 to J; the launches of each path."""
     phase_b0(device)
     reset_launches()
     stats, params_b, corpus_b = phase_b(device, CANONICAL)
@@ -2130,6 +2399,11 @@ def phases_b_to_i(device, seed, reader_build_s, tmp_i, fixture):
         shutil.rmtree(tmp)
     del corpus_b
     by_path["I"] = phase_i(device, PHASE_I, tmp_i, fixture, seed)
+    tmp_j = tempfile.mkdtemp(prefix="phase_j_", dir=BUILD)
+    try:
+        by_path["J"] = phase_j(device, PHASE_J, tmp_j, seed)
+    finally:
+        shutil.rmtree(tmp_j)
     return by_path
 
 

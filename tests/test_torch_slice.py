@@ -190,6 +190,12 @@ JAX_FREE_SOURCES = (
     os.path.join("scripts", "rank_adhoc_torch.py"),
     os.path.join("scripts", "rank_cranfield_torch.py"),
     os.path.join("scripts", "product_substitutability_torch.py"),
+    os.path.join("scripts", "visualize_reuters_torch.py"),
+    os.path.join("scripts", "quality_seeds_torch.py"),
+    os.path.join("scripts", "fusion_study_torch.py"),
+    os.path.join("scripts", "e2e_throughput_torch.py"),
+    os.path.join("scripts", "bench_query_torch.py"),
+    os.path.join("scripts", "make_product_fixture_torch.py"),
     os.path.join("scripts", "make_adhoc_fixture.py"),
     os.path.join("scripts", "make_adhoc_fixture_torch.py"),
     os.path.join("tests", "indri_fixture.py"),
@@ -233,7 +239,8 @@ def test_port_sources_name_no_jax_import():
     """The same rule read from the sources, which also holds where jax is
     already loaded: no import statement of the port names a forbidden
     package, but for triton in the kernel launcher's helper and the lazy
-    plotting imports of ``cli/visualize.py``."""
+    plotting imports of ``cli/visualize.py`` and
+    ``scripts/visualize_reuters_torch.py``."""
     import ast
 
     root = os.path.join(REPO, "cunvsm_torch")
@@ -254,7 +261,8 @@ def test_port_sources_name_no_jax_import():
                 # The t-SNE mode's packages, imported inside the function that
                 # plots and never when the module is imported.
                 allowed |= (root_name in ("matplotlib", "sklearn") and node not in tree.body
-                            and path.endswith(os.path.join("cli", "visualize.py")))
+                            and path.endswith((os.path.join("cli", "visualize.py"),
+                                               "visualize_reuters_torch.py")))
                 assert allowed or not _forbidden(name), (path, name)
 
 
@@ -435,6 +443,65 @@ def test_pipelines_open_no_file_of_the_jax_package(tmp_path):
     assert out.returncode == 0, out.stderr[-4000:]
     for path in ("adhoc/results.json", "cranfield/results.json", "product/results.json"):
         assert os.path.exists(tmp_path / path), path
+
+
+def test_study_scripts_open_no_file_of_the_jax_package(tmp_path):
+    """The last six scripts, run in a fresh interpreter with an audit hook
+    on ``open`` (``--device cpu``, tiny inputs) and with scikit-learn and
+    matplotlib absent, as on the card's machine: none reads a file under
+    ``cunvsm_tpu/`` or loads a forbidden package, and the Reuters pipeline
+    still writes its metrics."""
+    from tests.test_torch_scripts import write_adhoc_collection
+    from tests.test_torch_scripts_study import write_resources, write_reuters_sgml
+
+    root = tmp_path / "collection"
+    root.mkdir()
+    write_adhoc_collection(str(root))
+    write_reuters_sgml(tmp_path / "reuters.sgm")
+    write_resources(str(tmp_path / "resources"))
+    cran, tmp = str(root / "cranfield"), str(tmp_path)
+    code = (
+        "import importlib.util, os, sys\n"
+        "sys.modules['sklearn'] = sys.modules['matplotlib'] = None\n"
+        "before = set(sys.modules)\n"
+        "opened = []\n"
+        "sys.addaudithook(lambda e, a: opened.append(str(a[0])) if e == 'open' else None)\n"
+        "def load(name):\n"
+        "    spec = importlib.util.spec_from_file_location(name, os.path.join('scripts', name + '.py'))\n"
+        "    module = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(module)\n"
+        "    return module\n"
+        f"tmp, cran = {tmp!r}, {cran!r}\n"
+        "assert load('visualize_reuters_torch').main(['--sgm', tmp + '/reuters.sgm',\n"
+        "    '--workdir', tmp + '/reuters', '--num_epochs', '2', '--batch_size', '32',\n"
+        "    '--word_repr_size', '8', '--entity_repr_size', '8', '--device', 'cpu']) == 0\n"
+        "assert load('quality_seeds_torch').main(['--data_dir', cran, '--out', tmp + '/q.jsonl',\n"
+        "    '--config', 'auto', '--seeds', '1', '--num_epochs', '1', '--dump_runs', tmp + '/runs',\n"
+        "    '--device', 'cpu']) == 0\n"
+        "assert load('fusion_study_torch').main(['--data_dir', cran, '--runs_dir', tmp + '/runs',\n"
+        "    '--out', tmp + '/fusion.json']) == 0\n"
+        "assert load('make_product_fixture_torch').main(['--resources', tmp + '/resources',\n"
+        "    '--out', tmp + '/products', '--doc_len', '16']) == 0\n"
+        "assert load('e2e_throughput_torch').main(['--out', tmp + '/e2e.json', '--device', 'cpu',\n"
+        "    '--num_docs', '64', '--doc_len', '16', '--batch_size', '64', '--epochs', '2',\n"
+        "    '--steps_per_call', '2', '--word_repr_size', '8', '--entity_repr_size', '8',\n"
+        "    '--checkpoint_every', '1', '--workdir', tmp + '/e2e']) == 0\n"
+        "assert load('bench_query_torch').main(['--docs', '256', '--iters', '1', '--top_k', '10',\n"
+        "    '--device', 'cpu']) == 0\n"
+        "bad = [p for p in opened if 'cunvsm_tpu' in p]\n"
+        "assert not bad, bad\n"
+        f"bad = sorted(m for m in set(sys.modules) - before\n"
+        f"             if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-4000:]
+    for path in ("reuters/metrics.json", "q.jsonl", "runs/nvsm_auto_s1.run", "fusion.json",
+                 "products/corpus.trectext", "e2e.json", "e2e/model_2.hdf5"):
+        assert os.path.exists(tmp_path / path), path
+    assert os.listdir(tmp_path / "reuters" / "plots") == []
 
 
 def test_rehearsal_script_runs_only_the_port():
