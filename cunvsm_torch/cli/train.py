@@ -158,8 +158,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "differences before updating (slow; float64 "
                         "fidelity needs a float64 run, main.cu:414-425).")
     p.add_argument("--profile_dir", default=None,
-                   help="Write a torch.profiler Chrome trace of the first "
-                        "epoch into this directory.")
+                   help="Write a torch.profiler Chrome trace of the second "
+                        "trained epoch (the only one of a one-epoch run), "
+                        "with the package's cunvsm.* spans, into this "
+                        "directory.")
     p.add_argument("--log_every", type=int, default=0,
                    help="Per-batch cost/progress logging interval.")
     p.add_argument("--steps_per_call", type=int, default=1,

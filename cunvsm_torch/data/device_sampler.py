@@ -56,6 +56,7 @@ import torch
 from cunvsm_torch.data.corpus import Corpus
 from cunvsm_torch.data.instances import FeatureWeighting, Weighting
 from cunvsm_torch.models.objectives import TextEntityBatch
+from cunvsm_torch.spans import span
 from cunvsm_torch.train.step import ObjectiveKind, make_train_step, objective_kind_from_config
 
 GROUP_STREAM = 2  # the derived_seed stream of a data group's own generator
@@ -267,11 +268,12 @@ def make_device_sampled_multistep(
             raise ValueError(f"{len(draws)} draws for {num_steps} steps")
         costs = []
         for i in range(num_steps):
-            docs = None
-            if epoch_exact:
-                docs = _perm_slice(doc_perm, start + i * batch_size, batch_size)
             d = draws[i] if draws is not None else StepDraws(None, None)
-            batch = sample_batch(dc, batch_size, generator, docs=docs, uniforms=d.uniforms)
+            with span("cunvsm.sampler.batch"):
+                docs = None
+                if epoch_exact:
+                    docs = _perm_slice(doc_perm, start + i * batch_size, batch_size)
+                batch = sample_batch(dc, batch_size, generator, docs=docs, uniforms=d.uniforms)
             costs.append(step(params, opt_state, batch, negative_ids=d.negative_ids))
         return torch.stack(costs)
 
@@ -344,19 +346,21 @@ def make_device_sampled_sharded_multistep(
             # The global batch's draws, in the single-device order
             # (documents, then placements), of which this group keeps its
             # rows.
-            if epoch_exact:
-                docs = _perm_slice(doc_perm, start + i * batch_size, batch_size)[rows]
-            else:
-                idx = torch.randint(
-                    0, dc.eligible.shape[0], (batch_size,), generator=generator, device=device
-                )
-                docs = dc.eligible[idx[rows]]
-            uniforms = d.uniforms
-            if uniforms is None:
-                uniforms = torch.rand(
-                    batch_size, generator=generator, device=device, dtype=torch.float32
-                )[rows]
-            batch = _fetch_batch(dc, docs, uniforms, labels=docs)
+            with span("cunvsm.sampler.batch"):
+                if epoch_exact:
+                    docs = _perm_slice(doc_perm, start + i * batch_size, batch_size)[rows]
+                else:
+                    idx = torch.randint(
+                        0, dc.eligible.shape[0], (batch_size,), generator=generator,
+                        device=device,
+                    )
+                    docs = dc.eligible[idx[rows]]
+                uniforms = d.uniforms
+                if uniforms is None:
+                    uniforms = torch.rand(
+                        batch_size, generator=generator, device=device, dtype=torch.float32
+                    )[rows]
+                batch = _fetch_batch(dc, docs, uniforms, labels=docs)
             costs.append(step(params, opt_state, batch, negative_ids=d.negative_ids))
         return torch.stack(costs)
 
@@ -598,9 +602,10 @@ def make_corpus_sharded_multistep(
             ids = d.negative_ids
             if ids is not None and ids.ndim == 2:
                 ids = ids[mesh.batch_rows(ids.shape[0])]
-            batch = sample_sharded_batch(
-                sdc, b_local, doc_perm, cursor + i * b_local, group_gen, d.uniforms
-            )
+            with span("cunvsm.sampler.batch"):
+                batch = sample_sharded_batch(
+                    sdc, b_local, doc_perm, cursor + i * b_local, group_gen, d.uniforms
+                )
             costs.append(step(params, opt_state, batch, negative_ids=ids))
         return torch.stack(costs)
 

@@ -63,6 +63,7 @@ from cunvsm_torch.ops.activations import (
 )
 from cunvsm_torch.ops.batchnorm import batch_norm_train
 from cunvsm_torch.ops.cast import cast_table
+from cunvsm_torch.spans import span
 
 
 class TextEntityBatch(NamedTuple):
@@ -404,7 +405,8 @@ def text_entity_cost_and_grads(
     word_table = params.word_reprs
     cast = use_factored and stream_dtype is not None and stream_dtype != word_table.dtype
     if cast:
-        word_table = cast_table(word_table, stream_dtype)
+        with span("cunvsm.step.cast"):
+            word_table = cast_table(word_table, stream_dtype)
     phrase_pre = gather_phrase_reprs(
         word_table, batch.features, feature_weights, window_sum_dtype
     )
@@ -464,24 +466,26 @@ def _cost_and_grads_factored(
     )
     proj_s = projections.to(entity_pre.dtype)
     dots_raw = torch.sum(proj_s[:, None, :] * entity_pre, dim=-1, dtype=acc_dtype)
-    cost, similarity_probs, g_dots_raw = _nce_tail(
-        dots_raw, nce_w, desc, batch_size_normalizer
-    )
-    g_projections = torch.sum(
-        g_dots_raw.to(entity_pre.dtype)[:, :, None] * entity_pre,
-        dim=1, dtype=acc_dtype,
-    ).to(projections.dtype)
-    g_phrase, g_w, g_b = project_vjp(g_projections)
-    ascent = AscentGrads(
-        word=(_word_descriptor(g_phrase, batch, window, feature_weights),),
-        entity=(
-            _global_descriptor(
-                SparseGrad(grad=projections, indices=entity_ids, weights=-g_dots_raw), mesh
+    with span("cunvsm.step.loss"):
+        cost, similarity_probs, g_dots_raw = _nce_tail(
+            dots_raw, nce_w, desc, batch_size_normalizer
+        )
+    with span("cunvsm.step.backward"):
+        g_projections = torch.sum(
+            g_dots_raw.to(entity_pre.dtype)[:, :, None] * entity_pre,
+            dim=1, dtype=acc_dtype,
+        ).to(projections.dtype)
+        g_phrase, g_w, g_b = project_vjp(g_projections)
+        ascent = AscentGrads(
+            word=(_word_descriptor(g_phrase, batch, window, feature_weights),),
+            entity=(
+                _global_descriptor(
+                    SparseGrad(grad=projections, indices=entity_ids, weights=-g_dots_raw), mesh
+                ),
             ),
-        ),
-        transform_w=-g_w,
-        transform_b=-g_b,
-    )
+            transform_w=-g_w,
+            transform_b=-g_b,
+        )
     return cost, similarity_probs, ascent
 
 
@@ -539,7 +543,8 @@ def text_entity_cost_and_grads_pooled(
     word_table = params.word_reprs
     cast = stream_dtype is not None and stream_dtype != word_table.dtype
     if cast:
-        word_table = cast_table(word_table, stream_dtype)
+        with span("cunvsm.step.cast"):
+            word_table = cast_table(word_table, stream_dtype)
     phrase_pre = gather_phrase_reprs(
         word_table, batch.features, feature_weights, window_sum_dtype
     )
@@ -567,47 +572,49 @@ def text_entity_cost_and_grads_pooled(
     pos_dots = torch.sum(proj_s * pos, dim=-1, dtype=acc_dtype)  # [B]
     neg_dots = torch.bmm(proj_r, windows_acc.transpose(1, 2))  # [P, Q, k]
     dots_raw = torch.cat([pos_dots[:, None], neg_dots.reshape(B, k)], dim=1)
-    cost, similarity_probs, g_dots_raw = _nce_tail(
-        dots_raw, nce_w, desc, batch_size_normalizer
-    )
-    g0 = g_dots_raw[:, 0]
-    g_neg_r = g_dots_raw[:, 1:].to(pos.dtype).reshape(P_loc, Q, k).to(acc_dtype)
+    with span("cunvsm.step.loss"):
+        cost, similarity_probs, g_dots_raw = _nce_tail(
+            dots_raw, nce_w, desc, batch_size_normalizer
+        )
+    with span("cunvsm.step.backward"):
+        g0 = g_dots_raw[:, 0]
+        g_neg_r = g_dots_raw[:, 1:].to(pos.dtype).reshape(P_loc, Q, k).to(acc_dtype)
 
-    g_proj_neg = torch.bmm(g_neg_r, windows_acc)  # [P, Q, d]
-    g_projections = (
-        g0.to(acc_dtype)[:, None] * pos.to(acc_dtype) + g_proj_neg.reshape(B, -1)
-    ).to(projections.dtype)
-    g_phrase, g_w, g_b = project_vjp(g_projections)
+        g_proj_neg = torch.bmm(g_neg_r, windows_acc)  # [P, Q, d]
+        g_projections = (
+            g0.to(acc_dtype)[:, None] * pos.to(acc_dtype) + g_proj_neg.reshape(B, -1)
+        ).to(projections.dtype)
+        g_phrase, g_w, g_b = project_vjp(g_projections)
 
-    window_grads = torch.bmm(g_neg_r.transpose(1, 2), proj_r)  # [P_loc, k, d]
-    if mesh is not None:
-        placed = window_grads.new_zeros((P, *window_grads.shape[1:]))
-        placed[first:first + P_loc] = window_grads
-        window_grads = placed
-    pool_grad = window_grads[:, 0, :]
-    for j in range(1, k):
-        pool_grad = pool_grad + torch.roll(window_grads[:, j, :], j * S, 0)
-    if mesh is not None:
-        pool_grad = mesh.all_reduce(pool_grad, "data", "pool_grad")
+        window_grads = torch.bmm(g_neg_r.transpose(1, 2), proj_r)  # [P_loc, k, d]
+        if mesh is not None:
+            placed = window_grads.new_zeros((P, *window_grads.shape[1:]))
+            placed[first:first + P_loc] = window_grads
+            window_grads = placed
+        pool_grad = window_grads[:, 0, :]
+        for j in range(1, k):
+            pool_grad = pool_grad + torch.roll(window_grads[:, j, :], j * S, 0)
+        if mesh is not None:
+            pool_grad = mesh.all_reduce(pool_grad, "data", "pool_grad")
 
-    ascent = AscentGrads(
-        word=(_word_descriptor(g_phrase, batch, window, feature_weights),),
-        entity=(
-            _global_descriptor(
-                SparseGrad(
-                    grad=-g_dots_raw[:, :1] * projections.to(acc_dtype),
-                    indices=batch.labels[:, None],
-                    weights=None,
+        ascent = AscentGrads(
+            word=(_word_descriptor(g_phrase, batch, window, feature_weights),),
+            entity=(
+                _global_descriptor(
+                    SparseGrad(
+                        grad=-g_dots_raw[:, :1] * projections.to(acc_dtype),
+                        indices=batch.labels[:, None],
+                        weights=None,
+                    ),
+                    mesh,
                 ),
-                mesh,
+                SparseGrad(
+                    grad=-pool_grad.to(acc_dtype), indices=pool_ids[:, None], weights=None
+                ),
             ),
-            SparseGrad(
-                grad=-pool_grad.to(acc_dtype), indices=pool_ids[:, None], weights=None
-            ),
-        ),
-        transform_w=-g_w,
-        transform_b=-g_b,
-    )
+            transform_w=-g_w,
+            transform_b=-g_b,
+        )
     return cost, similarity_probs, ascent
 
 
@@ -646,7 +653,8 @@ def text_entity_cost_and_grads_shared(
     word_table = params.word_reprs
     cast = stream_dtype is not None and stream_dtype != word_table.dtype
     if cast:
-        word_table = cast_table(word_table, stream_dtype)
+        with span("cunvsm.step.cast"):
+            word_table = cast_table(word_table, stream_dtype)
     phrase_pre = gather_phrase_reprs(
         word_table, batch.features, feature_weights, window_sum_dtype
     )
@@ -668,36 +676,38 @@ def text_entity_cost_and_grads_shared(
     pos_dots = torch.sum(proj_s * pos, dim=-1, dtype=acc_dtype)  # [B]
     neg_dots = proj_acc @ negs_acc.T  # [B, k]
     dots_raw = torch.cat([pos_dots[:, None], neg_dots], dim=1)
-    cost, similarity_probs, g_dots_raw = _nce_tail(
-        dots_raw, nce_w, desc, batch_size_normalizer
-    )
-    g0 = g_dots_raw[:, 0]
-    g_neg = g_dots_raw[:, 1:].to(pos.dtype).to(acc_dtype)  # [B, k]
-    g_projections = (
-        g0.to(acc_dtype)[:, None] * pos.to(acc_dtype) + g_neg @ negs_acc
-    ).to(projections.dtype)
-    g_phrase, g_w, g_b = project_vjp(g_projections)
-    g_negs_rows = g_neg.T @ proj_acc  # [k, d]
-    if mesh is not None:
-        # This data group's rows only: the sum over the groups.
-        g_negs_rows = mesh.all_reduce(g_negs_rows, "data", "shared_neg_grad")
+    with span("cunvsm.step.loss"):
+        cost, similarity_probs, g_dots_raw = _nce_tail(
+            dots_raw, nce_w, desc, batch_size_normalizer
+        )
+    with span("cunvsm.step.backward"):
+        g0 = g_dots_raw[:, 0]
+        g_neg = g_dots_raw[:, 1:].to(pos.dtype).to(acc_dtype)  # [B, k]
+        g_projections = (
+            g0.to(acc_dtype)[:, None] * pos.to(acc_dtype) + g_neg @ negs_acc
+        ).to(projections.dtype)
+        g_phrase, g_w, g_b = project_vjp(g_projections)
+        g_negs_rows = g_neg.T @ proj_acc  # [k, d]
+        if mesh is not None:
+            # This data group's rows only: the sum over the groups.
+            g_negs_rows = mesh.all_reduce(g_negs_rows, "data", "shared_neg_grad")
 
-    ascent = AscentGrads(
-        word=(_word_descriptor(g_phrase, batch, window, feature_weights),),
-        entity=(
-            _global_descriptor(
-                SparseGrad(
-                    grad=-g_dots_raw[:, :1] * projections.to(acc_dtype),
-                    indices=batch.labels[:, None],
-                    weights=None,
+        ascent = AscentGrads(
+            word=(_word_descriptor(g_phrase, batch, window, feature_weights),),
+            entity=(
+                _global_descriptor(
+                    SparseGrad(
+                        grad=-g_dots_raw[:, :1] * projections.to(acc_dtype),
+                        indices=batch.labels[:, None],
+                        weights=None,
+                    ),
+                    mesh,
                 ),
-                mesh,
+                SparseGrad(grad=-g_negs_rows, indices=neg_ids[:, None], weights=None),
             ),
-            SparseGrad(grad=-g_negs_rows, indices=neg_ids[:, None], weights=None),
-        ),
-        transform_w=-g_w,
-        transform_b=-g_b,
-    )
+            transform_w=-g_w,
+            transform_b=-g_b,
+        )
     return cost, similarity_probs, ascent
 
 

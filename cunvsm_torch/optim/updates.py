@@ -67,6 +67,7 @@ from cunvsm_torch.models.objectives import AscentGrads, SparseGrad
 from cunvsm_torch.models.params import ModelParams, tensor_from_numpy
 from cunvsm_torch.ops.adam_sweep import fused_adam_dense_sweep
 from cunvsm_torch.ops.segment_kernels import sorted_segment_sum
+from cunvsm_torch.spans import span
 
 
 class SGDState(NamedTuple):
@@ -417,22 +418,24 @@ def _repr_adam_full(
     # narrower accumulator is widened here, before the sweep reads it.
     # ``data_shard_mesh``: the table is replicated under a mesh and the
     # descriptors are the data group's.
-    if data_shard_mesh is not None:
-        scattered = _data_sharded_accumulate(
-            table.shape[0], tuple(descs), data_shard_mesh, stream_dtype, accum_dtype,
-            reduce_dtype,
+    with span("cunvsm.optimizer.accumulate"):
+        if data_shard_mesh is not None:
+            scattered = _data_sharded_accumulate(
+                table.shape[0], tuple(descs), data_shard_mesh, stream_dtype, accum_dtype,
+                reduce_dtype,
+            )
+        else:
+            scattered = _sorted_segment_accumulate(
+                table.shape[0], tuple(descs), stream_dtype, accum_dtype
+            )
+        scattered = scattered.to(table.dtype)
+    with span("cunvsm.optimizer.sweep"):
+        bc = _adam_bias_correction(beta1, beta2, state.t, table.dtype)
+        fused_adam_dense_sweep(
+            table, state.m, state.v, scattered, lr * bc,
+            lam=lam, beta1=beta1, beta2=beta2, eps=eps,
         )
-    else:
-        scattered = _sorted_segment_accumulate(
-            table.shape[0], tuple(descs), stream_dtype, accum_dtype
-        )
-    scattered = scattered.to(table.dtype)
-    bc = _adam_bias_correction(beta1, beta2, state.t, table.dtype)
-    fused_adam_dense_sweep(
-        table, state.m, state.v, scattered, lr * bc,
-        lam=lam, beta1=beta1, beta2=beta2, eps=eps,
-    )
-    state.t.add_(1)
+        state.t.add_(1)
 
 
 # ---------------------------------------------------------------------------
@@ -515,34 +518,36 @@ class Optimizer:
         ``scaled_regularization_lambda`` is lambda / batch_size.  A table
         with no descriptors is left as it is (no decay fold either), and the
         transform when its gradients are None (a similarity objective)."""
-        cfg = self.cfg
-        lr, lam = learning_rate, scaled_regularization_lambda
-        word, entity = grads.word, grads.entity
-        mesh = self.mesh
-        word_mesh = None
-        if mesh is not None:
-            if _is_full_adam(cfg):
-                word_mesh = mesh
-            else:
-                word = tuple(_gather_word_descriptor(d, mesh) for d in word)
-            shard_rows = params.entity_reprs.shape[0]
-            entity = tuple(
-                localize_descriptor(d, shard_rows, mesh.model_index) for d in entity
-            )
-        if word:
-            self._apply_repr(params.word_reprs, opt_state.word, word, lr, lam, word_mesh)
-        if entity:
-            self._apply_repr(params.entity_reprs, opt_state.entity, entity, lr, lam)
-        if grads.transform_w is not None:
-            args = (params.transform_w, params.transform_b,
-                    grads.transform_w, grads.transform_b, lr, lam)
-            if cfg.update_method == UpdateMethod.SGD:
-                _transform_sgd(*args)
-            elif cfg.update_method == UpdateMethod.ADAGRAD:
-                _transform_adagrad(opt_state.transform, *args, cfg.adagrad_epsilon)
-            else:
-                _transform_adam(opt_state.transform, *args,
-                                cfg.adam.beta1, cfg.adam.beta2, cfg.adam.epsilon)
+        with span("cunvsm.optimizer.apply"):
+            cfg = self.cfg
+            lr, lam = learning_rate, scaled_regularization_lambda
+            word, entity = grads.word, grads.entity
+            mesh = self.mesh
+            word_mesh = None
+            if mesh is not None:
+                if _is_full_adam(cfg):
+                    word_mesh = mesh
+                else:
+                    word = tuple(_gather_word_descriptor(d, mesh) for d in word)
+                shard_rows = params.entity_reprs.shape[0]
+                entity = tuple(
+                    localize_descriptor(d, shard_rows, mesh.model_index) for d in entity
+                )
+            if word:
+                self._apply_repr(params.word_reprs, opt_state.word, word, lr, lam, word_mesh)
+            if entity:
+                self._apply_repr(params.entity_reprs, opt_state.entity, entity, lr, lam)
+            if grads.transform_w is not None:
+                args = (params.transform_w, params.transform_b,
+                        grads.transform_w, grads.transform_b, lr, lam)
+                with span("cunvsm.optimizer.transform"):
+                    if cfg.update_method == UpdateMethod.SGD:
+                        _transform_sgd(*args)
+                    elif cfg.update_method == UpdateMethod.ADAGRAD:
+                        _transform_adagrad(opt_state.transform, *args, cfg.adagrad_epsilon)
+                    else:
+                        _transform_adam(opt_state.transform, *args,
+                                        cfg.adam.beta1, cfg.adam.beta2, cfg.adam.epsilon)
         return params, opt_state
 
     def _apply_repr(self, table, state, descs, lr, lam, data_shard_mesh=None):

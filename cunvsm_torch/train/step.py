@@ -38,6 +38,7 @@ from cunvsm_torch.config import AdamMode, ModelDesc, TrainConfig, UpdateMethod
 from cunvsm_torch.models import objectives as obj
 from cunvsm_torch.models.params import ModelParams
 from cunvsm_torch.optim.updates import Optimizer, OptState
+from cunvsm_torch.spans import span
 
 
 class ObjectiveKind(enum.Enum):
@@ -370,10 +371,11 @@ def make_train_step(
     lam = scaled_regularization_lambda(cfg)
 
     def step(params: ModelParams, opt_state: OptState, batch, negative_ids=None):
-        cost, grads = compute_cost_and_grads(
-            kind, params, batch, generator, device, desc, cfg, num_entities, negative_ids,
-            mesh,
-        )
+        with span("cunvsm.step.cost_and_grads"):
+            cost, grads = compute_cost_and_grads(
+                kind, params, batch, generator, device, desc, cfg, num_entities, negative_ids,
+                mesh,
+            )
         optimizer.apply(params, opt_state, grads, lr, lam)
         return cost
 

@@ -45,8 +45,10 @@ which ride in the batch; ``skip_epochs`` replays the stream on resume.
 training (main.cu:544-562), each batch's draws from (seed,
 ``INITIAL_COST_STREAM``, batch); like the JAX package's, it consumes that
 epoch of the host source, so training starts at the next draw.
-``profile_dir`` records the first trained epoch with ``torch.profiler``
-and writes a Chrome trace there; ``check_gradients`` holds every host-fed
+``profile_dir`` records the second trained epoch (the only one of a
+one-epoch run) with ``torch.profiler`` and writes a Chrome trace there,
+which holds the ``cunvsm.`` spans of ``spans.py`` beside torch's
+operations; ``check_gradients`` holds every host-fed
 step's gradients to central finite differences first
 (``train/gradcheck.py``; under a mesh the mesh step's gradients, put
 together into full tables, against differences of the global cost).
@@ -91,6 +93,7 @@ from cunvsm_torch.models.objectives import SimilarityBatch, TextEntityBatch
 from cunvsm_torch.models.params import ModelParams, init_params, reference_init_params
 from cunvsm_torch.optim.updates import Optimizer, OptState
 from cunvsm_torch.parallel import distributed, mesh as pmesh
+from cunvsm_torch.spans import span
 from cunvsm_torch.train import gradcheck
 from cunvsm_torch.train.step import (
     ObjectiveKind,
@@ -216,12 +219,24 @@ def _start_profiler(device):
     return profiler
 
 
-def _stop_profiler(profiler, profile_dir: str) -> None:
+def _stop_profiler(profiler, profile_dir: str, epoch: int) -> None:
     profiler.stop()
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, "trace.json")
     profiler.export_chrome_trace(path)
-    logger.info("Profile of the first trained epoch written to %s.", path)
+    logger.info("Profile of epoch %d written to %s.", epoch, path)
+
+
+def _waited(batches):
+    """``batches``, each wait for the next one a ``cunvsm.trainer.wait_batch``
+    span."""
+    batches = iter(batches)
+    while True:
+        with span("cunvsm.trainer.wait_batch"):
+            batch = next(batches, None)
+        if batch is None:
+            return
+        yield batch
 
 
 def train_model(
@@ -417,7 +432,10 @@ def train_model(
         _log_initial_cost(desc, cfg, kind, device, generator, params, host_batches(),
                           corpus.num_docs, mesh)
     writer = ckpt.AsyncCheckpointWriter() if output_prefix and primary else None
-    profiler = _start_profiler(device) if profile_dir and primary else None
+    # The profiler traces the second trained epoch (the first builds the
+    # kernels and loads torch's lazy modules), or the only one.
+    profiled_epoch = min(start_epoch + 1, cfg.num_epochs) if profile_dir and primary else None
+    profiler = None
 
     def save_model(tag, overwrite=False):
         """Every rank fetches (a collective); the primary writes the real
@@ -446,45 +464,54 @@ def train_model(
         if dump_initial_model and output_prefix:
             save_model(0)
         for epoch in range(start_epoch, cfg.num_epochs + 1):
-            epoch_start = time.perf_counter()
-            costs = []
-            if on_device_sampling:
-                reseed(PERMUTATION_STREAM, epoch)
-                doc_perm = permute(generator)
-                cursor = 0
-                for run, n in runs:
-                    reseed(STEP_STREAM, total_batches)
-                    costs.append(run(params, opt_state, doc_perm, cursor))
-                    cursor += n * cfg.batch_size
-                    total_batches += n
-            else:
-                for i, batch in enumerate(host_batches()):
-                    if i % k == 0 or i >= grouped:
-                        reseed(STEP_STREAM, total_batches)
-                    if check_gradients:
-                        gradcheck.check_gradients(kind, params, batch, generator, device,
-                                                  desc, cfg, num_entities=corpus.num_docs,
-                                                  mesh=mesh)
-                    cost = step(params, opt_state, batch)
-                    costs.append(cost.reshape(1))
-                    total_batches += 1
-                    if log_every and total_batches % log_every == 0:
-                        logger.info("Batch %d (epoch %d): cost=%.6f progress=%.1f%%",
-                                    total_batches, epoch, float(cost),
-                                    100.0 * (i + 1) / max(batches_per_epoch, 1))
-                    if dump_every > 0 and output_prefix and total_batches % dump_every == 0:
-                        save_model(f"{epoch}_{total_batches}")
-            epoch_steps = sum(c.shape[0] for c in costs)
-            steps += epoch_steps
-            # One host read per epoch.
-            epoch_cost = float(torch.cat(costs).mean()) if costs else 0.0
-            epoch_costs.append(epoch_cost)
-            logger.info("Epoch %d%s: cost=%.6f (%d steps, %.1fs)", epoch,
-                        " (on-device sampling)" if on_device_sampling else "",
-                        epoch_cost, epoch_steps, time.perf_counter() - epoch_start)
+            if epoch == profiled_epoch:
+                profiler = _start_profiler(device)
+            with span("cunvsm.trainer.epoch"):
+                epoch_start = time.perf_counter()
+                costs = []
+                if on_device_sampling:
+                    with span("cunvsm.trainer.permute"):
+                        reseed(PERMUTATION_STREAM, epoch)
+                        doc_perm = permute(generator)
+                    cursor = 0
+                    for run, n in runs:
+                        with span("cunvsm.trainer.call"):
+                            reseed(STEP_STREAM, total_batches)
+                            costs.append(run(params, opt_state, doc_perm, cursor))
+                        cursor += n * cfg.batch_size
+                        total_batches += n
+                else:
+                    for i, batch in enumerate(_waited(host_batches())):
+                        if i % k == 0 or i >= grouped:
+                            reseed(STEP_STREAM, total_batches)
+                        if check_gradients:
+                            gradcheck.check_gradients(kind, params, batch, generator, device,
+                                                      desc, cfg, num_entities=corpus.num_docs,
+                                                      mesh=mesh)
+                        with span("cunvsm.trainer.call"):
+                            cost = step(params, opt_state, batch)
+                        costs.append(cost.reshape(1))
+                        total_batches += 1
+                        if log_every and total_batches % log_every == 0:
+                            logger.info("Batch %d (epoch %d): cost=%.6f progress=%.1f%%",
+                                        total_batches, epoch, float(cost),
+                                        100.0 * (i + 1) / max(batches_per_epoch, 1))
+                        if dump_every > 0 and output_prefix and total_batches % dump_every == 0:
+                            save_model(f"{epoch}_{total_batches}")
+                epoch_steps = sum(c.shape[0] for c in costs)
+                steps += epoch_steps
+                # One host read per epoch.
+                with span("cunvsm.trainer.cost_read"):
+                    epoch_cost = float(torch.cat(costs).mean()) if costs else 0.0
+                epoch_costs.append(epoch_cost)
+                logger.info("Epoch %d%s: cost=%.6f (%d steps, %.1fs)", epoch,
+                            " (on-device sampling)" if on_device_sampling else "",
+                            epoch_cost, epoch_steps, time.perf_counter() - epoch_start)
+            # The epoch's span closes with its cost read, before the
+            # profiler stops: a span still open then is dropped from its
+            # trace (torch 2.11).
             if profiler is not None:
-                # The first trained epoch only.
-                _stop_profiler(profiler, profile_dir)
+                _stop_profiler(profiler, profile_dir, epoch)
                 profiler = None
             dumped = output_prefix and (epoch % checkpoint_every == 0 or epoch == cfg.num_epochs)
             if dumped:

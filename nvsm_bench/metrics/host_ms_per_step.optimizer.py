@@ -1,0 +1,8 @@
+"""host_ms_per_step.optimizer: the self time of the optimizer's program spans
+per step of the profiled epoch (``layer_spans``)."""
+
+from nvsm_bench import layer_spans
+
+
+def read(ctx, rec):
+    return layer_spans.host_ms_per_step(rec, "optimizer")

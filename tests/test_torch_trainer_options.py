@@ -6,7 +6,8 @@
   and consumes that epoch of the host source, so training takes the next
   draw (as the JAX trainer's pass does); a resumed run accounts for it as
   an uninterrupted one does;
-* ``profile_dir`` writes a Chrome trace of the first trained epoch;
+* ``profile_dir`` writes a Chrome trace of the second trained epoch (the
+  only one of a one-epoch run), with the program's spans;
 * ``train/gradcheck.py``: every objective kind and negative layout passes
   at float64, with the leaf counts of the JAX package's check on the same
   inputs; a gradient perturbed by 1e-3 raises; ``train_model`` runs the
@@ -106,16 +107,44 @@ def test_initial_cost_resume_equals_uninterrupted(tmp_path):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("on_device", [False, True])
-def test_profile_dir_writes_a_trace_of_the_first_epoch(tmp_path, on_device):
+def _profiled_run(tmp_path, caplog, epochs, on_device):
+    """(plain run, profiled run, the trace's event names, the epoch the log
+    says was profiled)."""
     trace_dir = tmp_path / "trace"
-    plain = ttrainer.train_model(DESC, cfg(2), small_corpus(), CPU, on_device_sampling=on_device)
-    profiled = ttrainer.train_model(DESC, cfg(2), small_corpus(), CPU, on_device_sampling=on_device,
-                                    profile_dir=str(trace_dir))
+    plain = ttrainer.train_model(DESC, cfg(epochs), small_corpus(), CPU,
+                                 on_device_sampling=on_device)
+    with caplog.at_level(logging.INFO, logger=ttrainer.__name__):
+        profiled = ttrainer.train_model(DESC, cfg(epochs), small_corpus(), CPU,
+                                        on_device_sampling=on_device,
+                                        profile_dir=str(trace_dir))
     assert os.listdir(trace_dir) == ["trace.json"]
     with open(trace_dir / "trace.json") as f:
-        events = json.load(f)["traceEvents"]
-    assert any("aten::" in str(e.get("name", "")) for e in events)
+        names = [str(e.get("name", "")) for e in json.load(f)["traceEvents"]]
+    logged = [r.args[0] for r in caplog.records if r.msg.startswith("Profile of epoch")]
+    return plain, profiled, names, logged
+
+
+@pytest.mark.parametrize("on_device", [False, True])
+def test_profile_dir_writes_a_trace_of_the_second_epoch(tmp_path, caplog, on_device):
+    """Of a longer run the trace is of the second trained epoch, the first
+    after the one that builds the kernels."""
+    plain, profiled, names, logged = _profiled_run(tmp_path, caplog, 3, on_device)
+    assert logged == [2]
+    assert any("aten::" in n for n in names)
+    # The program's spans of that epoch alone.
+    assert names.count("cunvsm.trainer.epoch") == 1
+    assert names.count("cunvsm.step.cost_and_grads") == profiled.steps // 3
+    assert profiled.epoch_costs == plain.epoch_costs
+
+
+@pytest.mark.parametrize("on_device", [False, True])
+def test_profile_dir_writes_a_trace_of_the_first_epoch(tmp_path, caplog, on_device):
+    """Of a one-epoch run the trace is of its first and only epoch."""
+    plain, profiled, names, logged = _profiled_run(tmp_path, caplog, 1, on_device)
+    assert logged == [1]
+    assert any("aten::" in n for n in names)
+    assert names.count("cunvsm.trainer.epoch") == 1
+    assert names.count("cunvsm.step.cost_and_grads") == profiled.steps
     assert profiled.epoch_costs == plain.epoch_costs
 
 
