@@ -251,7 +251,9 @@ def make_device_sampled_multistep(
     draws its uniforms, then its negatives, from ``generator``, unless
     ``draws`` gives K ``StepDraws``.  Nothing in a call waits for the
     device, so the K steps are enqueued back to back.  Only the text-entity
-    objective samples on the device.
+    objective samples on the device.  ``run.step`` is the step closure
+    (``train.step.make_train_step``), whose graph replays the K steps on a
+    CUDA device.
     """
     if objective_kind_from_config(cfg) != ObjectiveKind.TEXT_ENTITY:
         raise ValueError("on-device sampling supports only the text-entity objective")
@@ -277,6 +279,7 @@ def make_device_sampled_multistep(
             costs.append(step(params, opt_state, batch, negative_ids=d.negative_ids))
         return torch.stack(costs)
 
+    run.step = step
     return run
 
 
@@ -364,6 +367,7 @@ def make_device_sampled_sharded_multistep(
             costs.append(step(params, opt_state, batch, negative_ids=d.negative_ids))
         return torch.stack(costs)
 
+    run.step = step
     return run
 
 
@@ -609,6 +613,7 @@ def make_corpus_sharded_multistep(
             costs.append(step(params, opt_state, batch, negative_ids=ids))
         return torch.stack(costs)
 
+    run.step = step
     return run
 
 

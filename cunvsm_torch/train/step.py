@@ -25,11 +25,18 @@ the single-device run of that seed.  The cost's normalizer is the global
 batch size; the cost and the transform gradients are summed over the data
 axis in one all-reduce (``cost_and_transform_grads``); the objectives and
 the optimizer call the other collectives.
+
+On a CUDA device a single-device text-entity step captures its
+``compute_cost_and_grads`` once as a CUDA graph and replays it at every
+later step of the same shapes (``StepGraph``), so that the card runs the
+step's few hundred small kernels without waiting for the host to launch
+each.  The optimizer stays eager and follows the replay on the same stream.
 """
 
 from __future__ import annotations
 
 import enum
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -37,6 +44,7 @@ import torch
 from cunvsm_torch.config import AdamMode, ModelDesc, TrainConfig, UpdateMethod
 from cunvsm_torch.models import objectives as obj
 from cunvsm_torch.models.params import ModelParams
+from cunvsm_torch.ops.cast import cast_table
 from cunvsm_torch.optim.updates import Optimizer, OptState
 from cunvsm_torch.spans import span
 
@@ -341,6 +349,110 @@ def scaled_regularization_lambda(cfg: TrainConfig) -> float:
     return cfg.regularization_lambda / cfg.batch_size
 
 
+def graph_signature(kind: ObjectiveKind, mesh, device, params: ModelParams, batch,
+                    negative_ids=None):
+    """What a step's CUDA graph is captured for, or None where the step
+    runs eagerly: a device other than CUDA, a mesh (whose collectives stay
+    out of a capture), an objective other than text-entity.  The signature
+    holds the shape and dtype of each field of ``batch`` and of
+    ``negative_ids`` (None where absent) and the address, shape and dtype
+    of each parameter table, which the graph reads where it was captured."""
+    if (kind != ObjectiveKind.TEXT_ENTITY or mesh is not None
+            or torch.device(device).type != "cuda"):
+        return None
+
+    def shape(t):
+        return None if t is None else (tuple(t.shape), t.dtype)
+
+    return (tuple(shape(t) for t in batch), shape(negative_ids),
+            tuple((t.data_ptr(), shape(t)) for t in params))
+
+
+class _CapturedStep:
+    """One CUDA graph of ``cost_and_grads(batch, negative_ids)``: static
+    copies of the inputs that the step reads, which each replay refreshes,
+    and the outputs, which each replay overwrites.  The generator's draws
+    inside the graph advance its state at each replay as the eager draws
+    would, from the seed and offset it holds then."""
+
+    def __init__(self, cost_and_grads, generator, batch: obj.TextEntityBatch, negative_ids,
+                 uniform_feature_weights: bool):
+        self.batch = obj.TextEntityBatch(*(None if t is None else t.clone() for t in batch))
+        self.negative_ids = None if negative_ids is None else negative_ids.clone()
+        # The feature weights are not read under uniform feature weights.
+        self._skip = {"feature_weights"} if uniform_feature_weights else set()
+        self.graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            self.graph.register_generator_state(generator)
+        casts = cast_table.launches
+        # Thread-local: the host-fed prefetch thread copies batches meanwhile.
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.outputs = cost_and_grads(self.batch, self.negative_ids)
+        # The launch counters count the kernels that ran: each replay's, not
+        # the capture's.
+        self._casts = cast_table.launches - casts
+        cast_table.launches = casts
+
+    def _inputs(self, batch, negative_ids):
+        read = [t for name, t in zip(batch._fields, batch) if name not in self._skip]
+        return [t for t in read + [negative_ids] if t is not None]
+
+    def replay(self, batch, negative_ids):
+        for static, t in zip(self._inputs(self.batch, self.negative_ids),
+                             self._inputs(batch, negative_ids)):
+            static.copy_(t)
+        self.graph.replay()
+        cast_table.launches += self._casts
+        return self.outputs
+
+
+class StepGraph:
+    """``cost_and_grads(params, batch, negative_ids)`` of one step closure,
+    replayed from a CUDA graph where ``graph_signature`` allows.
+
+    The first call of a signature runs eagerly: it loads torch's lazy
+    modules, builds the cast kernel and sets cuBLAS up for the shapes.  The
+    next call of that signature captures the graph (a capture runs nothing)
+    and replays it, and so does every later call of it; a call of another
+    signature runs eagerly.  The closure holds one graph.  The returned cost
+    is a copy of the graph's; the gradients are the graph's own, which the
+    next replay overwrites in stream order.  ``replays`` counts the steps
+    replayed."""
+
+    def __init__(self, cost_and_grads, kind: ObjectiveKind, mesh, device, generator,
+                 uniform_feature_weights: bool):
+        self._cost_and_grads = cost_and_grads
+        self._kind, self._mesh, self._device = kind, mesh, device
+        self._generator = generator
+        self._uniform = uniform_feature_weights
+        self._warm = None  # the signature of the last eager call that had one
+        self._signature = None  # the captured one
+        self._captured = None
+        self.replays = 0
+
+    def __call__(self, params: ModelParams, batch, negative_ids=None):
+        signature = graph_signature(self._kind, self._mesh, self._device, params, batch,
+                                    negative_ids)
+        if signature is None:
+            return self._cost_and_grads(params, batch, negative_ids)
+        if self._captured is None:
+            if signature != self._warm:
+                self._warm = signature
+                return self._cost_and_grads(params, batch, negative_ids)
+            with span("cunvsm.step.capture"):
+                self._captured = _CapturedStep(
+                    functools.partial(self._cost_and_grads, params), self._generator, batch,
+                    negative_ids, self._uniform,
+                )
+            self._signature = signature
+        elif signature != self._signature:
+            return self._cost_and_grads(params, batch, negative_ids)
+        with span("cunvsm.step.replay"):
+            cost, grads = self._captured.replay(batch, negative_ids)
+            self.replays += 1
+            return cost.clone(), grads
+
+
 def make_train_step(
     desc: ModelDesc,
     cfg: TrainConfig,
@@ -363,6 +475,10 @@ def make_train_step(
     ``mesh`` (a ``parallel.mesh.Mesh``) makes it this rank's part of the
     mesh step (see the module doc): ``batch`` is then the rank's rows of the
     global batch and the returned cost the global one.
+
+    On a CUDA device without a mesh a text-entity step replays its cost and
+    gradients from a CUDA graph from its second call on (``StepGraph``,
+    ``step.graph``, whose ``replays`` counts the replayed steps).
     """
     if kind is None:
         kind = objective_kind_from_config(cfg)
@@ -370,15 +486,20 @@ def make_train_step(
     lr = cfg.resolved_learning_rate()
     lam = scaled_regularization_lambda(cfg)
 
+    def cost_and_grads(params: ModelParams, batch, negative_ids):
+        return compute_cost_and_grads(
+            kind, params, batch, generator, device, desc, cfg, num_entities, negative_ids, mesh,
+        )
+
+    graph = StepGraph(cost_and_grads, kind, mesh, device, generator, cfg.uniform_feature_weights)
+
     def step(params: ModelParams, opt_state: OptState, batch, negative_ids=None):
         with span("cunvsm.step.cost_and_grads"):
-            cost, grads = compute_cost_and_grads(
-                kind, params, batch, generator, device, desc, cfg, num_entities, negative_ids,
-                mesh,
-            )
+            cost, grads = graph(params, batch, negative_ids)
         optimizer.apply(params, opt_state, grads, lr, lam)
         return cost
 
+    step.graph = graph
     return step
 
 

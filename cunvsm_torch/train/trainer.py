@@ -15,7 +15,10 @@ Port of the single-device paths of ``cunvsm_tpu/train/trainer.py``:
   ``steps_epoch // K`` calls of K steps, then one call of the remainder,
   so every full batch trains once per epoch.
 
-The per-step costs stay on the device until one read per epoch.  With an
+On a CUDA device without a mesh each step closure replays the text-entity
+step's cost and gradients from a CUDA graph from its second step on
+(``train/step.py:StepGraph``); the epoch's log line counts the steps
+replayed.  The per-step costs stay on the device until one read per epoch.  With an
 ``output_prefix`` the loop writes ``<prefix>_meta`` and the vocabulary and
 docno sidecars once, and at every ``checkpoint_every``-th epoch (and the
 last) ``<prefix>_<epoch>.hdf5`` and ``<prefix>_resume.npz``, all through an
@@ -388,7 +391,7 @@ def train_model(
                 k, steps_epoch, rem_steps,
             )
         calls = [(k, steps_epoch // k)] + ([(rem_steps, 1)] if rem_steps else [])
-        runs = []
+        runs, step_fns = [], []
         for n, count in calls:
             if shard_corpus:
                 run = device_sampler.make_corpus_sharded_multistep(
@@ -403,10 +406,12 @@ def train_model(
                     desc, cfg, dc, n, generator, num_entities=corpus.num_docs
                 )
             runs += [(run, n)] * count
+            step_fns.append(run.step)
     else:
         step = make_train_step(
             desc, cfg, device, generator, num_entities=corpus.num_docs, mesh=mesh
         )
+        step_fns = [step]
         batches_per_epoch = source.batches_per_epoch()
         grouped = batches_per_epoch // k * k  # later steps run as calls of one
 
@@ -468,6 +473,7 @@ def train_model(
                 profiler = _start_profiler(device)
             with span("cunvsm.trainer.epoch"):
                 epoch_start = time.perf_counter()
+                replays_before = sum(s.graph.replays for s in step_fns)
                 costs = []
                 if on_device_sampling:
                     with span("cunvsm.trainer.permute"):
@@ -504,9 +510,11 @@ def train_model(
                 with span("cunvsm.trainer.cost_read"):
                     epoch_cost = float(torch.cat(costs).mean()) if costs else 0.0
                 epoch_costs.append(epoch_cost)
-                logger.info("Epoch %d%s: cost=%.6f (%d steps, %.1fs)", epoch,
+                logger.info("Epoch %d%s: cost=%.6f (%d steps, %.1fs, %d replayed from a "
+                            "CUDA graph)", epoch,
                             " (on-device sampling)" if on_device_sampling else "",
-                            epoch_cost, epoch_steps, time.perf_counter() - epoch_start)
+                            epoch_cost, epoch_steps, time.perf_counter() - epoch_start,
+                            sum(s.graph.replays for s in step_fns) - replays_before)
             # The epoch's span closes with its cost read, before the
             # profiler stops: a span still open then is dropped from its
             # trace (torch 2.11).
