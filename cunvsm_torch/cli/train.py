@@ -204,8 +204,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "bfloat16 requires --stream_dtype bfloat16.")
     p.add_argument("--on_device_sampling", action="store_true",
                    help="Keep the packed corpus on the device and sample "
-                        "batches there (stochastic text-entity training "
-                        "only; fastest path).")
+                        "batches there (stochastic training only; a "
+                        "composite samples its similarity pairs there too, "
+                        "on one device; fastest path).")
     p.add_argument("--reference_rng", action="store_true",
                    help="Replay the CUDA reference's host minstd_rand0 "
                         "stream bit-for-bit for instance order, Glorot init "

@@ -16,6 +16,12 @@ Two sampling modes, as in the JAX package:
   next contiguous slice of the shuffled pointers;
 * **i.i.d.**: documents drawn uniformly per batch.
 
+A composite objective (Mix 'n Match, CIKM 2018) also trains a stream of
+similarity pairs (``DevicePairStream``): the pairs and their weights are
+resident on the card, each pass of the stream is one ``torch.randperm`` of
+the pairs, which the steps consume in slices of the batch size, and the
+multistep runner hands each step its (text, pair) batch.
+
 Window positions are uniform per draw in both.  Each draw is separate from
 the fetch: ``sample_batch`` and the multistep runner accept the uniforms
 (and the negative ids) as arguments, so the fetch and the steps can be held
@@ -55,11 +61,14 @@ import torch
 
 from cunvsm_torch.data.corpus import Corpus
 from cunvsm_torch.data.instances import FeatureWeighting, Weighting
-from cunvsm_torch.models.objectives import TextEntityBatch
+from cunvsm_torch.models.objectives import SimilarityBatch, TextEntityBatch
 from cunvsm_torch.spans import span
-from cunvsm_torch.train.step import ObjectiveKind, make_train_step, objective_kind_from_config
+from cunvsm_torch.train.step import (
+    COMPOSITES, ObjectiveKind, make_train_step, objective_kind_from_config,
+)
 
 GROUP_STREAM = 2  # the derived_seed stream of a data group's own generator
+PAIR_STREAM = 3  # the derived_seed stream of the similarity pairs' passes
 
 
 def derived_seed(seed: int, stream: int, counter: int) -> int:
@@ -231,6 +240,80 @@ class StepDraws(NamedTuple):
     negative_ids: torch.Tensor  # [P] pool ids, [k] shared ids or [B, k] negatives
 
 
+class DevicePairStream:
+    """The similarity pairs of a composite objective, sampled on the card.
+
+    ``ids`` [n, 2] and ``weights`` [n] (``data.sources.SimilaritySource``'s
+    arrays) are copied to ``device`` once.  Pass p of the stream is the
+    permutation ``torch.randperm(n)`` drawn from a generator of the stream's
+    own on ``device``, reseeded at the start of the pass from
+    ``derived_seed(seed, PAIR_STREAM, p)``; the pass's j-th batch is the
+    pairs at ``perm[j*B : (j+1)*B]`` with B = ``batch_size``.  A pass holds
+    ``n // B`` batches, the remainder dropped, or ``ceil(n / B)`` with a
+    shorter last one under ``drop_remainder=False``; the next pass follows
+    at once.  Global step t (the trainer's count of steps trained, resumed
+    runs included) takes batch ``t % per_pass`` of pass ``t // per_pass``,
+    so a call, an epoch's end or a resume only moves the cursor
+    (``seek``).
+
+    The text stream draws from the trainer's generator and never from this
+    one: a composite's text batches, window placements and negatives are
+    those of the text-entity run of the seed, and the pairs are a function
+    of the seed and the step alone.  The host-fed path's pair stream
+    (``SimilaritySource``, numpy's ``RandomState``) draws other
+    permutations, as the host-fed text stream draws other batches.
+
+    ``trained`` counts the pairs handed to steps and ``passes`` the
+    permutations drawn (a resumed run draws its pass in progress again)."""
+
+    def __init__(self, ids, weights, batch_size: int, seed: int, device,
+                 drop_remainder: bool = True):
+        ids = torch.as_tensor(np.asarray(ids)).reshape(-1, 2)
+        if ids.shape[0] != len(weights):
+            raise ValueError(f"{ids.shape[0]} pairs but {len(weights)} weights")
+        n = ids.shape[0]
+        self.per_pass = n // batch_size if drop_remainder else -(-n // batch_size)
+        if self.per_pass < 1:
+            raise ValueError(f"{n} similarity pairs hold no batch of {batch_size}")
+        self.ids = ids.to(device=device, dtype=torch.int64)
+        self.weights = torch.as_tensor(np.asarray(weights)).to(device=device,
+                                                               dtype=torch.float32)
+        self.batch_size = batch_size
+        self.seed = seed
+        self.generator = torch.Generator(device=device)
+        self.step = 0
+        self.trained = self.passes = 0
+        self._pass, self._perm = None, None
+
+    @classmethod
+    def from_source(cls, source, seed: int, device) -> "DevicePairStream":
+        """The stream of a host ``SimilaritySource``'s pairs, batch size and
+        remainder rule."""
+        return cls(source.ids, source.weights, source.batch_size, seed, device,
+                   source.drop_remainder)
+
+    def seek(self, step: int) -> None:
+        """The next batch is global step ``step``'s."""
+        self.step = step
+
+    def next_batch(self) -> SimilarityBatch:
+        """The pairs of the next step, and the cursor advanced."""
+        p, j = divmod(self.step, self.per_pass)
+        if p != self._pass:
+            with span("cunvsm.similarity.permute"):
+                self.generator.manual_seed(derived_seed(self.seed, PAIR_STREAM, p))
+                self._perm = torch.randperm(self.ids.shape[0], generator=self.generator,
+                                            device=self.ids.device)
+                self._pass = p
+                self.passes += 1
+        with span("cunvsm.similarity.batch"):
+            sel = self._perm[j * self.batch_size:(j + 1) * self.batch_size]
+            batch = SimilarityBatch(self.ids[sel], self.weights[sel])
+        self.step += 1
+        self.trained += sel.shape[0]
+        return batch
+
+
 def make_device_sampled_multistep(
     desc,
     cfg,
@@ -239,6 +322,7 @@ def make_device_sampled_multistep(
     generator: torch.Generator,
     num_entities: Optional[int] = None,
     epoch_exact: bool = True,
+    pairs: Optional[DevicePairStream] = None,
 ):
     """K = ``num_steps`` training steps per call, each sampling its own
     batch from the device corpus.
@@ -250,13 +334,22 @@ def make_device_sampled_multistep(
     ``make_epoch_permuter``); the cursor is host arithmetic.  Each step
     draws its uniforms, then its negatives, from ``generator``, unless
     ``draws`` gives K ``StepDraws``.  Nothing in a call waits for the
-    device, so the K steps are enqueued back to back.  Only the text-entity
-    objective samples on the device.  ``run.step`` is the step closure
-    (``train.step.make_train_step``), whose graph replays the K steps on a
-    CUDA device.
+    device, so the K steps are enqueued back to back.  ``run.step`` is the
+    step closure (``train.step.make_train_step``), whose graph replays the
+    K steps on a CUDA device.
+
+    A composite objective (``cfg``'s mixture weights) needs ``pairs``, the
+    similarity stream: each step then trains its text batch with the
+    stream's next pair batch (``DevicePairStream.next_batch``), and
+    ``run.pairs`` is the stream, whose ``trained`` and ``passes`` count what
+    the steps took.  The text-entity objective takes no pairs.
     """
-    if objective_kind_from_config(cfg) != ObjectiveKind.TEXT_ENTITY:
-        raise ValueError("on-device sampling supports only the text-entity objective")
+    kind = objective_kind_from_config(cfg)
+    if kind in COMPOSITES and pairs is None:
+        raise ValueError(f"on-device sampling of the {kind.value} objective needs a "
+                         f"similarity pair stream")
+    if kind not in COMPOSITES and pairs is not None:
+        raise ValueError("only a composite objective trains a similarity pair stream")
     step = make_train_step(
         desc, cfg, dc.tokens.device, generator, num_entities=num_entities
     )
@@ -276,10 +369,13 @@ def make_device_sampled_multistep(
                 if epoch_exact:
                     docs = _perm_slice(doc_perm, start + i * batch_size, batch_size)
                 batch = sample_batch(dc, batch_size, generator, docs=docs, uniforms=d.uniforms)
+            if pairs is not None:
+                batch = (batch, pairs.next_batch())
             costs.append(step(params, opt_state, batch, negative_ids=d.negative_ids))
         return torch.stack(costs)
 
     run.step = step
+    run.pairs = pairs
     return run
 
 

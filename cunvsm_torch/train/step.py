@@ -26,8 +26,8 @@ batch size; the cost and the transform gradients are summed over the data
 axis in one all-reduce (``cost_and_transform_grads``); the objectives and
 the optimizer call the other collectives.
 
-On a CUDA device a single-device text-entity step captures its
-``compute_cost_and_grads`` once as a CUDA graph and replays it at every
+On a CUDA device a single-device text-entity or composite step captures
+its ``compute_cost_and_grads`` once as a CUDA graph and replays it at every
 later step of the same shapes (``StepGraph``), so that the card runs the
 step's few hundred small kernels without waiting for the host to launch
 each.  The optimizer stays eager and follows the replay on the same stream.
@@ -317,7 +317,8 @@ def _local_cost_and_grads(kind, params, batch, generator, device, desc, cfg, num
         params, te_batch, generator, device, desc, cfg, num_entities, negative_ids, mesh
     )
     table, sim_weight = _similarity_table_and_weight(kind, cfg)
-    sim_cost, sim_grads = _similarity_grads(params, sim_batch, desc, table, mesh)
+    with span("cunvsm.step.similarity"):
+        sim_cost, sim_grads = _similarity_grads(params, sim_batch, desc, table, mesh)
     merged = obj.merge_ascent_grads(
         ((te_grads, cfg.text_entity_weight), (sim_grads, sim_weight))
     )
@@ -349,35 +350,47 @@ def scaled_regularization_lambda(cfg: TrainConfig) -> float:
     return cfg.regularization_lambda / cfg.batch_size
 
 
+GRAPHED = (ObjectiveKind.TEXT_ENTITY,) + COMPOSITES
+
+
+def batch_parts(batch) -> tuple:
+    """The batches of one step: a text-entity or similarity batch alone, or
+    a composite's (TextEntityBatch, SimilarityBatch) pair."""
+    return batch if type(batch) is tuple else (batch,)
+
+
 def graph_signature(kind: ObjectiveKind, mesh, device, params: ModelParams, batch,
                     negative_ids=None):
     """What a step's CUDA graph is captured for, or None where the step
     runs eagerly: a device other than CUDA, a mesh (whose collectives stay
-    out of a capture), an objective other than text-entity.  The signature
-    holds the shape and dtype of each field of ``batch`` and of
-    ``negative_ids`` (None where absent) and the address, shape and dtype
-    of each parameter table, which the graph reads where it was captured."""
-    if (kind != ObjectiveKind.TEXT_ENTITY or mesh is not None
-            or torch.device(device).type != "cuda"):
+    out of a capture), a bare similarity objective.  The signature holds
+    the shape and dtype of each field of ``batch`` (of both batches of a
+    composite) and of ``negative_ids`` (None where absent) and the address,
+    shape and dtype of each parameter table, which the graph reads where it
+    was captured."""
+    if kind not in GRAPHED or mesh is not None or torch.device(device).type != "cuda":
         return None
 
     def shape(t):
         return None if t is None else (tuple(t.shape), t.dtype)
 
-    return (tuple(shape(t) for t in batch), shape(negative_ids),
-            tuple((t.data_ptr(), shape(t)) for t in params))
+    return (tuple(tuple(shape(t) for t in part) for part in batch_parts(batch)),
+            shape(negative_ids), tuple((t.data_ptr(), shape(t)) for t in params))
 
 
 class _CapturedStep:
     """One CUDA graph of ``cost_and_grads(batch, negative_ids)``: static
-    copies of the inputs that the step reads, which each replay refreshes,
-    and the outputs, which each replay overwrites.  The generator's draws
-    inside the graph advance its state at each replay as the eager draws
-    would, from the seed and offset it holds then."""
+    copies of the inputs that the step reads (both batches of a composite),
+    which each replay refreshes, and the outputs, which each replay
+    overwrites.  The generator's draws inside the graph advance its state at
+    each replay as the eager draws would, from the seed and offset it holds
+    then."""
 
-    def __init__(self, cost_and_grads, generator, batch: obj.TextEntityBatch, negative_ids,
+    def __init__(self, cost_and_grads, generator, batch, negative_ids,
                  uniform_feature_weights: bool):
-        self.batch = obj.TextEntityBatch(*(None if t is None else t.clone() for t in batch))
+        parts = tuple(type(b)(*(None if t is None else t.clone() for t in b))
+                      for b in batch_parts(batch))
+        self.batch = parts if type(batch) is tuple else parts[0]
         self.negative_ids = None if negative_ids is None else negative_ids.clone()
         # The feature weights are not read under uniform feature weights.
         self._skip = {"feature_weights"} if uniform_feature_weights else set()
@@ -394,7 +407,8 @@ class _CapturedStep:
         cast_table.launches = casts
 
     def _inputs(self, batch, negative_ids):
-        read = [t for name, t in zip(batch._fields, batch) if name not in self._skip]
+        read = [t for b in batch_parts(batch) for name, t in zip(b._fields, b)
+                if name not in self._skip]
         return [t for t in read + [negative_ids] if t is not None]
 
     def replay(self, batch, negative_ids):
@@ -476,9 +490,10 @@ def make_train_step(
     mesh step (see the module doc): ``batch`` is then the rank's rows of the
     global batch and the returned cost the global one.
 
-    On a CUDA device without a mesh a text-entity step replays its cost and
-    gradients from a CUDA graph from its second call on (``StepGraph``,
-    ``step.graph``, whose ``replays`` counts the replayed steps).
+    On a CUDA device without a mesh a text-entity or composite step replays
+    its cost and gradients from a CUDA graph from its second call on
+    (``StepGraph``, ``step.graph``, whose ``replays`` counts the replayed
+    steps).
     """
     if kind is None:
         kind = objective_kind_from_config(cfg)

@@ -1,5 +1,5 @@
-"""Epoch loop for every objective, host-fed or (text-entity only) sampled
-on the device, with HDF5 checkpoints and resume.
+"""Epoch loop for every objective, host-fed or sampled on the device, with
+HDF5 checkpoints and resume.
 
 Port of the single-device paths of ``cunvsm_tpu/train/trainer.py``:
 
@@ -13,16 +13,22 @@ Port of the single-device paths of ``cunvsm_tpu/train/trainer.py``:
   batches from the epoch's shuffled pointers (``data.device_sampler``).
   An epoch is ``steps_epoch = max(min(batches, pointers // B), 1)`` steps:
   ``steps_epoch // K`` calls of K steps, then one call of the remainder,
-  so every full batch trains once per epoch.
+  so every full batch trains once per epoch.  On one device a composite
+  objective samples its similarity pairs there too
+  (``data.device_sampler.DevicePairStream``, its own generator reseeded
+  from (seed, ``PAIR_STREAM``, pass) at every pass); the text stream
+  paces the epoch as on the host-fed path.  Under a mesh a composite
+  trains host-fed.
 
 On a CUDA device without a mesh each step closure replays the text-entity
-step's cost and gradients from a CUDA graph from its second step on
-(``train/step.py:StepGraph``); the epoch's log line counts the steps
-replayed.  The per-step costs stay on the device until one read per epoch.  With an
-``output_prefix`` the loop writes ``<prefix>_meta`` and the vocabulary and
-docno sidecars once, and at every ``checkpoint_every``-th epoch (and the
-last) ``<prefix>_<epoch>.hdf5`` and ``<prefix>_resume.npz``, all through an
-``AsyncCheckpointWriter``.
+or composite step's cost and gradients from a CUDA graph from its second
+step on (``train/step.py:StepGraph``); the epoch's log line counts the
+steps replayed, and on the on-device path of a composite the epoch's
+similarity pairs and the passes begun.  The per-step costs stay on the
+device until one read per epoch.  With an ``output_prefix`` the loop
+writes ``<prefix>_meta`` and the vocabulary and docno sidecars once, and at
+every ``checkpoint_every``-th epoch (and the last) ``<prefix>_<epoch>.hdf5``
+and ``<prefix>_resume.npz``, all through an ``AsyncCheckpointWriter``.
 
 Random streams.  The JAX package derives the epoch's permutation key from
 the epoch and each call's step key from the count of steps trained
@@ -31,7 +37,10 @@ the epoch and each call's step key from the count of steps trained
 ``derived_seed(cfg.seed, stream, counter)``: from (seed,
 ``PERMUTATION_STREAM``, epoch) before the epoch's shuffle, and from (seed,
 ``STEP_STREAM``, total_batches) before each call, whose steps then draw
-their window placements and negatives in order.  Parameters are
+their window placements and negatives in order.  The on-device pair
+stream of a composite draws from a generator of its own, reseeded from
+(seed, ``device_sampler.PAIR_STREAM``, pass) before each pass's
+permutation, so it moves no draw of the text stream.  Parameters are
 Glorot-initialized from the generator seeded with ``cfg.seed``.  A resumed
 run therefore draws what an uninterrupted run would have drawn; the
 host-fed path replays its numpy batch stream with
@@ -99,6 +108,7 @@ from cunvsm_torch.parallel import distributed, mesh as pmesh
 from cunvsm_torch.spans import span
 from cunvsm_torch.train import gradcheck
 from cunvsm_torch.train.step import (
+    COMPOSITES,
     ObjectiveKind,
     make_cost_fn,
     make_train_step,
@@ -146,8 +156,11 @@ def _check_options(cfg, kind, on_device_sampling, steps_per_call, checkpoint_eve
     if stratify_data_groups and not on_device_sampling:
         raise ValueError("stratify_data_groups requires on_device_sampling")
     if on_device_sampling:
-        if kind != ObjectiveKind.TEXT_ENTITY:
-            raise ValueError("on-device sampling supports only the text-entity objective")
+        if kind != ObjectiveKind.TEXT_ENTITY and mesh is not None:
+            raise ValueError(
+                "on-device sampling under a mesh supports only the text-entity "
+                "objective; a mesh trains a composite host-fed"
+            )
         if cfg.no_shuffle:
             raise ValueError("on-device sampling is stochastic-only")
         if check_gradients:
@@ -342,7 +355,7 @@ def train_model(
             source.skip_epochs(last_epoch)
         logger.info("Resumed from epoch %d at step %d.", last_epoch, total_batches)
     sim_iter = iter(repeating(similarity_source)) if similarity_source is not None else None
-    if sim_iter is not None:
+    if sim_iter is not None and (not on_device_sampling or compute_initial_cost):
         # Fast-forward the similarity stream past the batches trained.
         for _ in range(total_batches):
             next(sim_iter)
@@ -362,6 +375,7 @@ def train_model(
         ckpt.save_corpus_sidecars(corpus, output_prefix)
 
     k = max(steps_per_call, 1)
+    pairs = None  # the on-device similarity stream of a composite
     if on_device_sampling:
         resolved = Weighting.UNIFORM if weighting == Weighting.AUTOMATIC else weighting
         if shard_corpus:
@@ -392,6 +406,11 @@ def train_model(
             )
         calls = [(k, steps_epoch // k)] + ([(rem_steps, 1)] if rem_steps else [])
         runs, step_fns = [], []
+        if kind in COMPOSITES:
+            # Every call closure takes its pair batches from one stream.
+            pairs = device_sampler.DevicePairStream.from_source(similarity_source, cfg.seed,
+                                                                device)
+            pairs.seek(total_batches)
         for n, count in calls:
             if shard_corpus:
                 run = device_sampler.make_corpus_sharded_multistep(
@@ -403,7 +422,7 @@ def train_model(
                 )
             else:
                 run = device_sampler.make_device_sampled_multistep(
-                    desc, cfg, dc, n, generator, num_entities=corpus.num_docs
+                    desc, cfg, dc, n, generator, num_entities=corpus.num_docs, pairs=pairs
                 )
             runs += [(run, n)] * count
             step_fns.append(run.step)
@@ -462,6 +481,9 @@ def train_model(
                 extra={"total_batches": np.asarray(total_batches)},
             )
 
+    def similarity_counts():
+        return (pairs.trained, pairs.passes) if pairs is not None else (0, 0)
+
     epoch_costs: List[float] = []
     steps = 0
     train_start = time.perf_counter()
@@ -474,6 +496,7 @@ def train_model(
             with span("cunvsm.trainer.epoch"):
                 epoch_start = time.perf_counter()
                 replays_before = sum(s.graph.replays for s in step_fns)
+                pairs_before, passes_before = similarity_counts()
                 costs = []
                 if on_device_sampling:
                     with span("cunvsm.trainer.permute"):
@@ -510,11 +533,15 @@ def train_model(
                 with span("cunvsm.trainer.cost_read"):
                     epoch_cost = float(torch.cat(costs).mean()) if costs else 0.0
                 epoch_costs.append(epoch_cost)
+                pairs_now, passes_now = similarity_counts()
                 logger.info("Epoch %d%s: cost=%.6f (%d steps, %.1fs, %d replayed from a "
-                            "CUDA graph)", epoch,
+                            "CUDA graph%s)", epoch,
                             " (on-device sampling)" if on_device_sampling else "",
                             epoch_cost, epoch_steps, time.perf_counter() - epoch_start,
-                            sum(s.graph.replays for s in step_fns) - replays_before)
+                            sum(s.graph.replays for s in step_fns) - replays_before,
+                            "" if pairs is None else
+                            f"; {pairs_now - pairs_before} similarity pairs, "
+                            f"{passes_now - passes_before} passes begun")
             # The epoch's span closes with its cost read, before the
             # profiler stops: a span still open then is dropped from its
             # trace (torch 2.11).

@@ -252,11 +252,44 @@ def test_iid_multistep_draws_eligible_documents_and_trains():
 
 @pytest.mark.parametrize("weights", [dict(entity_entity_weight=0.5), dict(term_term_weight=0.5)])
 def test_multistep_refuses_composite_objectives(weights):
-    """The sampler draws text-entity batches only; a composite also needs
-    a similarity stream, which the host-fed path zips in."""
-    _, tdc = both_corpora(uneven_corpus(num_docs=60, seed=6))
-    with pytest.raises(ValueError, match="only the text-entity objective"):
-        tds.make_device_sampled_multistep(
-            DESCS["nvsm"], train_config(**weights), tdc, 2, torch.Generator())
+    """A composite refused without its similarity pair stream; with one
+    (``DevicePairStream``) each of K = 2 epoch-exact steps trains the text
+    batch it samples with the stream's next pair batch, and costs and
+    tables equal, bit for bit, the host-fed step's fed those batches and
+    the same injected draws."""
+    corpus = uneven_corpus(num_docs=60, seed=6)
+    _, tdc = both_corpora(corpus)
+    desc, c = DESCS["nvsm"], train_config(**weights)
+    with pytest.raises(ValueError, match="needs a similarity pair stream"):
+        tds.make_device_sampled_multistep(desc, c, tdc, 2, torch.Generator())
+    rows = corpus.num_docs if "entity_entity_weight" in weights else V
+    rng = np.random.RandomState(3)
+    ids, pair_w = rng.randint(0, rows, (3 * B, 2)), rng.uniform(0.5, 1.5, 3 * B)
+    entity_rows = (corpus.num_docs, desc.entity_repr_size)
+    np_params = numpy_params(25)._replace(
+        entity_reprs=np.random.RandomState(4).uniform(-0.5, 0.5, entity_rows))
+    gen = torch.Generator().manual_seed(2)
+    perm = tds.make_epoch_permuter(tdc)[0](gen)
+    draws = [tds.StepDraws(torch.rand(B, generator=gen),
+                           torch.randint(0, corpus.num_docs, (B, K), generator=gen))
+             for _ in range(2)]
+    _, tp = both_params(np_params)
+    state = tupd.Optimizer(c).init(tp)
+    run = tds.make_device_sampled_multistep(
+        desc, c, tdc, 2, gen, num_entities=corpus.num_docs,
+        pairs=tds.DevicePairStream(ids, pair_w, B, 7, "cpu"),
+    )
+    costs = run(tp, state, perm, B, draws=draws)
+    assert (run.pairs.trained, run.pairs.passes) == (2 * B, 1)
+    _, hp = both_params(np_params)
+    host_state = tupd.Optimizer(c).init(hp)
+    host_step = tstep.make_train_step(desc, c, "cpu", gen, num_entities=corpus.num_docs)
+    pairs = tds.DevicePairStream(ids, pair_w, B, 7, "cpu")
+    for i, d in enumerate(draws):
+        te = tds.sample_batch(tdc, B, docs=perm[(1 + i) * B:(2 + i) * B], uniforms=d.uniforms)
+        cost = host_step(hp, host_state, (te, pairs.next_batch()), negative_ids=d.negative_ids)
+        assert torch.equal(cost, costs[i])
+    for a, b in zip(hp, tp):
+        assert torch.equal(a, b)
 
 

@@ -3,9 +3,10 @@
 The graph itself runs only on a card (``tests_card/test_card_graph.py``
 holds graphed training bitwise to eager training there).  Here:
 
-* ``graph_signature`` sends a CPU device, a mesh and a composite to the
-  eager path, and tells apart batches of other shapes, absent and present
-  injected ids, and other parameter tables;
+* ``graph_signature`` sends a CPU device, a mesh (a composite's too) and
+  the bare similarity objectives to the eager path, and tells apart
+  batches of other shapes (a composite's pair batch too), absent and
+  present injected ids, and other parameter tables;
 * on the CPU every path trains eagerly and captures nothing;
 * with the capture replaced by a stand-in that has a CUDA graph's
   semantics (a capture runs nothing; static inputs, refreshed at each
@@ -15,8 +16,10 @@ holds graphed training bitwise to eager training there).  Here:
   eagerly; training equals eager training bit for bit on the on-device
   path (with a remainder call) and the host-fed path, the epoch log counts
   the replayed steps, and a K-step call stacks one distinct cost per step;
-  a mesh and a composite still capture nothing; the capture and each
-  replay are spans inside the step's span.
+  both composites, on-device and host-fed, capture their (text, pair)
+  batches and replay as their eager training; a mesh and a composite under
+  a mesh still capture nothing; the capture and each replay are spans
+  inside the step's span.
 """
 
 import collections
@@ -66,7 +69,9 @@ class FakeCapture:
     def __init__(self, cost_and_grads, generator, batch, negative_ids, uniform_feature_weights):
         type(self).captures += 1
         self.cost_and_grads = cost_and_grads
-        self.inputs = (TextEntityBatch(*(None if t is None else t.clone() for t in batch)),
+        parts = tuple(type(b)(*(None if t is None else t.clone() for t in b))
+                      for b in tstep.batch_parts(batch))
+        self.inputs = (parts if type(batch) is tuple else parts[0],
                        None if negative_ids is None else negative_ids.clone())
         state = generator.get_state()
         self.outputs = cost_and_grads(*self.inputs)
@@ -108,13 +113,20 @@ def params():
     return init_params(torch.Generator().manual_seed(1), 27, 9, DESC, device=CPU)
 
 
+def pairs(rows=8):
+    return SimilarityBatch(torch.zeros(rows, 2).long(), torch.ones(rows))
+
+
 SIGNATURE_CASES = {
     "cpu": (tstep.ObjectiveKind.TEXT_ENTITY, None, CPU, batch()),
     "mesh": (tstep.ObjectiveKind.TEXT_ENTITY, pmesh.Mesh(1, 1), CUDA, batch()),
-    "composite_entity": (tstep.ObjectiveKind.TEXT_ENTITY_ENTITY_ENTITY, None, CUDA,
-                         (batch(), SimilarityBatch(torch.zeros(8, 2).long(), torch.ones(8)))),
-    "composite_word": (tstep.ObjectiveKind.TEXT_ENTITY_TERM_TERM, None, CUDA,
-                       (batch(), SimilarityBatch(torch.zeros(8, 2).long(), torch.ones(8)))),
+    # A composite under a mesh and on the CPU; the bare similarity
+    # objectives anywhere.
+    "composite_entity": (tstep.ObjectiveKind.TEXT_ENTITY_ENTITY_ENTITY, pmesh.Mesh(1, 1), CUDA,
+                         (batch(), pairs())),
+    "composite_word": (tstep.ObjectiveKind.TEXT_ENTITY_TERM_TERM, None, CPU, (batch(), pairs())),
+    "entity_entity": (tstep.ObjectiveKind.ENTITY_ENTITY, None, CUDA, pairs()),
+    "term_term": (tstep.ObjectiveKind.TERM_TERM, None, CUDA, pairs()),
 }
 
 
@@ -140,6 +152,18 @@ def test_graph_signature_tells_apart_shapes_ids_and_tables():
     ]
     assert base not in others
     assert len(set(others)) == len(others)
+
+
+@pytest.mark.parametrize("kind", tstep.COMPOSITES)
+def test_a_composite_signature_holds_both_batches(kind):
+    p = params()
+    base = tstep.graph_signature(kind, None, CUDA, p, (batch(), pairs()))
+    assert base is not None
+    assert tstep.graph_signature(kind, None, CUDA, p, (batch(seed=4), pairs())) == base
+    others = [tstep.graph_signature(kind, None, CUDA, p, (batch(), pairs(rows=4))),
+              tstep.graph_signature(kind, None, CUDA, p, (batch(rows=16), pairs())),
+              tstep.graph_signature(tstep.ObjectiveKind.TEXT_ENTITY, None, CUDA, p, batch())]
+    assert base not in others and len(set(others)) == 3
 
 
 @pytest.mark.parametrize("path", sorted(PATHS))
@@ -217,6 +241,8 @@ def test_a_multistep_call_stacks_one_distinct_cost_per_step(fake_graph, monkeypa
 
 @pytest.mark.parametrize("what", ["mesh", "composite"])
 def test_a_mesh_and_a_composite_capture_nothing(monkeypatch, caplog, what):
+    """A mesh step, and a composite step under a mesh (host-fed), run
+    eagerly."""
     real = tstep.graph_signature
     monkeypatch.setattr(tstep, "graph_signature",
                         lambda kind, mesh, device, *rest: real(kind, mesh, CUDA, *rest))
@@ -226,11 +252,37 @@ def test_a_mesh_and_a_composite_capture_nothing(monkeypatch, caplog, what):
         c, kw = cfg(EPOCHS), dict(mesh=pmesh.Mesh(1, 1))
     else:
         c = cfg(EPOCHS, **COMPOSITE_WEIGHTS["entity"])
-        kw = dict(similarity_source=similarity_source(corpus, "entity"))
+        kw = dict(similarity_source=similarity_source(corpus, "entity"), mesh=pmesh.Mesh(1, 1))
     with caplog.at_level(logging.INFO, logger="cunvsm_torch.train.trainer"):
         result = train_model(DESC, c, corpus, CPU, **kw)
     assert result.steps > 0
     assert replayed(caplog) == [0] * EPOCHS
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+@pytest.mark.parametrize("table", sorted(COMPOSITE_WEIGHTS))
+def test_graphed_composite_training_equals_eager_training(fake_graph, caplog, monkeypatch,
+                                                         table, path):
+    """Both batches of a composite step are the graph's inputs: two epochs
+    (19 steps each; on the device in calls of 2 and a remainder of 1)
+    replay every step but each closure's first ones and equal eager
+    training bit for bit."""
+    corpus = small_corpus()
+    c = cfg(EPOCHS, **COMPOSITE_WEIGHTS[table], **CONFIGS["pooled_bf16"])
+    # A source of its own for each run: the host-fed one draws its passes
+    # from a RandomState that it keeps.
+    with monkeypatch.context() as eager:
+        eager.setattr(tstep, "graph_signature", lambda *args: None)
+        want = train_model(DESC, c, corpus, CPU, **PATHS[path],
+                           similarity_source=similarity_source(corpus, table))
+    with caplog.at_level(logging.INFO, logger="cunvsm_torch.train.trainer"):
+        got = train_model(DESC, c, corpus, CPU, **PATHS[path],
+                          similarity_source=similarity_source(corpus, table))
+    assert got.epoch_costs == want.epoch_costs
+    assert_same_state(want, got)
+    closures = 2 if path == "on_device" else 1
+    assert fake_graph.captures == closures
+    assert sum(replayed(caplog)) == got.steps - closures
 
 
 def test_capture_and_replay_spans_sit_in_the_step_span(fake_graph):

@@ -12,6 +12,9 @@
   file;
 * on-device epochs train every full batch once: a K that does not divide
   the epoch adds one remainder call, a K larger than the epoch is clamped;
+* a composite sampled on the device trains each step as the host-fed
+  step fed the same batches and draws, bit for bit, and under a mesh it is
+  refused (a mesh trains it host-fed);
 * the JAX trainer's guards raise ValueError (compute_initial_cost,
   profile_dir and check_gradients have their own tests in
   tests/test_torch_trainer_options.py; the mesh options in
@@ -34,10 +37,15 @@ from cunvsm_torch.config import (
     TrainConfig,
     UpdateMethod,
 )
+from cunvsm_torch.data import device_sampler as tds
 from cunvsm_torch.data.corpus import build_corpus
 from cunvsm_torch.data.instances import FeatureWeighting, TextEntitySource
 from cunvsm_torch.data.sources import Prefetcher, SimilaritySource
 from cunvsm_torch.io import checkpoint as tckpt
+from cunvsm_torch.models.objectives import SimilarityBatch, TextEntityBatch
+from cunvsm_torch.models.params import init_params
+from cunvsm_torch.optim.updates import Optimizer
+from cunvsm_torch.train import step as tstep
 from cunvsm_torch.train.trainer import derived_seed, train_model
 from tests.test_torch_slice import synthetic_corpus
 
@@ -220,8 +228,8 @@ def test_derived_seeds_differ_by_stream_and_counter():
     (dict(stratify_data_groups=2), {}, "requires on_device_sampling"),
     (dict(on_device_sampling=True, shard_corpus=True), {}, "requires a mesh"),
     (dict(), dict(entity_entity_weight=0.5), "similarity source"),
-    (dict(on_device_sampling=True, similarity_source=object()), dict(term_term_weight=0.5),
-     "only the text-entity objective"),
+    (dict(on_device_sampling=True, similarity_source=object(), mesh=object()),
+     dict(term_term_weight=0.5), "only the text-entity objective"),
 ])
 def test_jax_guards_raise_value_error(kwargs, config, match):
     with pytest.raises(ValueError, match=match):
@@ -303,3 +311,74 @@ def test_composite_trains_with_steps_per_call_and_logs_the_layout(caplog):
     assert all(np.isfinite(result.epoch_costs))
     assert result.steps == 2 * TextEntitySource(corpus, 8).batches_per_epoch()
     assert "Negative sampling: per-instance (k=2)" in caplog.text
+
+def recording_steps(monkeypatch):
+    """Every step closure the trainer makes records each step's (global
+    index, pair batch, the trainer generator's state before the step,
+    text batch)."""
+    seen = []
+    real = tstep.make_train_step
+
+    def make(desc, cfg_, device, generator, *args, **kw):
+        step = real(desc, cfg_, device, generator, *args, **kw)
+
+        def recording(params, opt_state, batch, negative_ids=None):
+            te, sim = batch
+            seen.append((len(seen), sim, generator.get_state(),
+                         TextEntityBatch(*(None if t is None else t.clone() for t in te))))
+            return step(params, opt_state, batch, negative_ids)
+
+        recording.graph = step.graph
+        return recording
+
+    monkeypatch.setattr(tds, "make_train_step", make)
+    return seen
+
+
+def similarity_arrays(corpus, table, seed=9):
+    """The ids and weights of ``similarity_source``."""
+    source = similarity_source(corpus, table, seed)
+    return source.ids, source.weights
+
+
+@pytest.mark.parametrize("table", ["entity", "word"])
+def test_on_device_composite_trains_each_step_as_the_host_fed_step(monkeypatch, table):
+    """Two epochs of ``train_model`` on the device; then the host-fed step
+    closure, from the same initial tables, fed each recorded text and pair
+    batch with the trainer's generator set to the state it had before that
+    step (the negatives are drawn inside the step): every cost and the
+    final state equal bit for bit."""
+    corpus = small_corpus()
+    c = cfg(2, **COMPOSITE_WEIGHTS[table], negative_pool_size=4)
+    ids, weights = similarity_arrays(corpus, table)
+    source = SimilaritySource(ids, weights, batch_size=8, seed=9)
+    costs = []
+    with monkeypatch.context() as m:
+        seen = recording_steps(m)
+        real = tds.make_train_step
+
+        def make(*args, **kw):
+            step = real(*args, **kw)
+
+            def costing(params, opt_state, batch, negative_ids=None):
+                costs.append(step(params, opt_state, batch, negative_ids))
+                return costs[-1]
+
+            costing.graph = step.graph
+            return costing
+
+        m.setattr(tds, "make_train_step", make)
+        got = train_model(DESC, c, corpus, CPU, on_device_sampling=True, steps_per_call=3,
+                          similarity_source=source)
+    gen = torch.Generator().manual_seed(c.seed)
+    params = init_params(gen, corpus.vocab.size, corpus.num_docs, DESC, device=CPU)
+    state = Optimizer(c).init(params)
+    host_step = tstep.make_train_step(DESC, c, CPU, gen, num_entities=corpus.num_docs)
+    for (_, sim, gen_state, te), cost in zip(seen, costs):
+        gen.set_state(gen_state)
+        want = host_step(params, state, (te, SimilarityBatch(sim.ids.clone(), sim.weights)))
+        assert torch.equal(want, cost)
+    assert len(seen) == got.steps == 38
+    for a, b in zip(tuple(params) + tuple(x for s in state for x in s),
+                    tuple(got.params) + tuple(x for s in got.opt_state for x in s)):
+        assert torch.equal(a, b)

@@ -9,8 +9,9 @@ every step's cost are bitwise equal on the on-device path (pooled bfloat16
 full_adam as the benchmark trains it, and per-instance float32; K = 13
 calls with their reseeds and a remainder call) and on the host-fed path
 (non-uniform feature weights, so that each replay refreshes them).  Every
-step of a call closure but its first replays.  A mesh step and a composite
-step capture nothing.  A profiler started after the capture records the
+step of a call closure but its first replays.  Both composites, their pairs
+sampled on the card too, replay bitwise equal to eager training.  A mesh
+step captures nothing.  A profiler started after the capture records the
 replayed kernels by name, the CUDA C++ cast among them, and one
 ``cunvsm.step.replay`` span a replayed step.
 """
@@ -173,15 +174,32 @@ def test_a_mesh_step_captures_nothing(cuda, monkeypatch, tmp_path):
     assert result.steps == STEPS_EPOCH
 
 
-def test_a_composite_step_captures_nothing(cuda, monkeypatch):
-    monkeypatch.setattr(tstep, "_CapturedStep", NoCapture)
+@pytest.mark.parametrize("table", ["entity", "word"])
+def test_graphed_composite_epochs_equal_eager_ones_bitwise(cuda, monkeypatch, caplog, table):
+    """Both composites on the on-device path, the pairs sampled on the card
+    too (4 B pairs, 4 steps a pass): the K-step closure and the remainder
+    closure each capture once, on their second step, and replay the rest,
+    bitwise equal to eager training."""
     rng = np.random.RandomState(9)
-    pairs = SimilaritySource(rng.randint(0, DOCS, (4 * B, 2)).astype(np.int32),
-                             rng.uniform(0.5, 1.5, 4 * B).astype(np.float32), batch_size=B,
-                             seed=9)
-    cfg = config(num_epochs=1, text_entity_weight=0.7, entity_entity_weight=0.3)
-    result = ttrainer.train_model(DESC, cfg, corpus(), cuda, similarity_source=pairs)
-    assert result.steps > 2
+    rows = DOCS if table == "entity" else V
+    ids = rng.randint(0, rows, (4 * B, 2)).astype(np.int32)
+    weights = rng.uniform(0.5, 1.5, 4 * B).astype(np.float32)
+    mix = (dict(text_entity_weight=0.9, entity_entity_weight=0.1) if table == "entity"
+           else dict(text_entity_weight=0.6, term_term_weight=0.4))
+    cfg = config(negative_pool_size=-1, **mix)
+
+    def kw():
+        return dict(on_device_sampling=True, steps_per_call=K,
+                    similarity_source=SimilaritySource(ids, weights, batch_size=B, seed=9))
+
+    eager, eager_costs, _, eager_replays = train(monkeypatch, caplog, cfg, False, **kw())
+    got, costs, steps, replays = train(monkeypatch, caplog, cfg, True, **kw())
+    assert got.steps == eager.steps == EPOCHS * STEPS_EPOCH
+    assert torch.equal(costs, eager_costs)
+    assert_bitwise(got, eager)
+    assert [s.graph.replays for s in steps] == [EPOCHS * STEPS_EPOCH // K * K - 1,
+                                                EPOCHS * (STEPS_EPOCH % K) - 1]
+    assert sum(replays) == got.steps - 2 and eager_replays == [0] * EPOCHS
 
 
 def profiled_counts(run, params, state, perm, start):
