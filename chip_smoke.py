@@ -5,25 +5,31 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py [--seed N]     # about nine minutes
 
-It builds both kernels from the sources in the checkout: the sweep with
-Triton (its cache goes under build/triton) and the cast with nvcc (into
-build/cuda), and the C++ corpus reader with g++ (into build/native), and
-runs the port's main path:
+It builds the kernels from the sources in the checkout: the sweep with
+Triton (its cache goes under build/triton), the cast and the segment sum
+with nvcc (into build/cuda), and the C++ corpus reader with g++ (into
+build/native), and runs the port's main path:
 
   A  each kernel against its plain PyTorch version at the shapes of the
      main path, bitwise (sweep: m', v' and p' on [65536, 300] and
      [262144, 256] float32; cast: [65536, 300], an operand of edge values
      and random bit patterns with NaN checked as NaN, a slice that starts
-     one element in, and 5 elements), with the time of each (CUDA events:
-     the median of 40 single calls, and 20 calls back to back between one
-     pair of events, divided by 20);
+     one element in, and 5 elements; segment sum: full_adam's accumulation
+     of the word table, [65536, 300] from 51,200 x 10 Zipf 1.07 ids, and of
+     the entity table, [262144, 256] from 51,200 labels and 2,048 pool
+     rows, under bfloat16 streams, bitwise to the plain version on the same
+     plan and within n * 2^-24 * mass of a float64 sum), with the time of
+     each (CUDA events: the median of 40 single calls, and 20 calls back to
+     back between one pair of events, divided by 20);
   B0 three steps of a small configuration on the card (float32, kernels)
      against the same steps on the CPU in float64 (plain versions);
   B  the canonical NVSM configuration of bench.py at full width (V 65536,
      N 262144, d 300->256, B 51200, W 10, k 10, hard_tanh + BN, full_adam,
      bfloat16 streams, pool auto = 2048 / stride 205) for 23 steps from a
      Zipf corpus of 262144 documents x 32 tokens through TextEntitySource;
-     every cost finite, the sweep launched twice and the cast once per step;
+     every cost finite, the sweep launched twice, the cast once and the
+     segment sum twice per step, ``index_add_`` never (``read_launches``:
+     every phase below holds the four counts to its rule);
   C  train_model on the three-topic corpus of
      tests/test_train_integration.py (cost falls below 0.6x, MAP > 0.8),
      then top-1000 rankings of 100 random queries over the phase-B tables;
@@ -49,10 +55,10 @@ runs the port's main path:
      path for 2 epochs, fed a similarity file of one pair per document made
      from --seed and read back with load_similarities.  Each prints
      ms/step, pairs/s, peak MiB, its first and last cost (all finite) and
-     its negative layout, and asserts its launches per step: the sweep 2
-     under full_adam and 0 otherwise, the cast 1 where the factored,
-     pooled or shared path runs under bfloat16 streams and 0 on the
-     expanded per-instance path;
+     its negative layout, and asserts its launches per step: the sweep and
+     the segment sum 2 under full_adam and 0 otherwise, the cast 1 where
+     the factored, pooled or shared path runs under bfloat16 streams and 0
+     on the expanded per-instance path;
   F  the command-line entry points, in process: F1 cunvsm-torch-train
      (``cunvsm_torch.cli.train.main``) on phase B's corpus saved as a
      packed .npz, with the canonical flags, on-device sampling in calls of
@@ -101,11 +107,10 @@ runs the port's main path:
      one device: H1 a process group of one rank with NCCL on cuda:0 and a
      1x1 mesh: ``train_model(mesh=, on_device_sampling=True)`` for one epoch
      (117 steps in calls of K = 13) through the sharded multistep, held to
-     the single-device ``train_model`` run of the same seed.  On the card two
-     single-device runs of one seed differ themselves after 117 steps
-     (``index_add_`` adds in no fixed order, Adam amplifies the last bit;
-     ``scripts/run_to_run_spread_torch.py``), so each side trains the epoch
-     twice: with the default kernels (the time, 2 sweeps and 1 cast per
+     the single-device ``train_model`` run of the same seed.  Wherever a
+     sum of the step adds in no fixed order, 117 Adam steps amplify its last
+     bit (``scripts/run_to_run_spread_torch.py``), so each side trains the
+     epoch twice: with the default kernels (the time, 2 sweeps and 1 cast per
      step, every collective printed with its calls and bytes, the epoch
      cost within H_COST_RTOL) and under
      ``torch.use_deterministic_algorithms``, where every table entry is
@@ -177,7 +182,8 @@ runs the port's main path:
 Without a CUDA device it exits with an error before printing any result.
 The last line of its output is one JSON object with "ok" and the device;
 the line before it lists each kernel with its launches (in all and by
-phase), error, times, the least time the card could take for the same
+phase; for the segment sum also its fallbacks to ``index_add_``), error,
+times, the least time the card could take for the same
 work (``bound_ms``: the bytes it must move over 3.35 TB/s, or its float32
 operations over 67 TFLOP/s, whichever is larger; ``bound_by`` says which)
 and the time of one PyTorch call computing the same function
@@ -229,7 +235,7 @@ from cunvsm_torch.io import checkpoint
 from cunvsm_torch.io.trec import read_run
 from cunvsm_torch.models.objectives import SimilarityBatch, SparseGrad, TextEntityBatch
 from cunvsm_torch.models.params import init_params, params_from_numpy, params_to_numpy
-from cunvsm_torch.ops import adam_sweep, cast, cuda_build
+from cunvsm_torch.ops import adam_sweep, cast, cuda_build, segment_kernels
 from cunvsm_torch.optim.updates import Optimizer, _sorted_segment_accumulate
 from cunvsm_torch.parallel import distributed
 from cunvsm_torch.parallel import mesh as pmesh
@@ -447,6 +453,102 @@ def check_cast(name, x):
     return y
 
 
+def segment_operands(device, sizes, gen):
+    """full_adam's two accumulations of a canonical step: the word table's
+    descriptor, [B, d] gradient rows and B x W ids drawn from Zipf 1.07 over
+    the vocabulary (the commonest word holds about 12% of the entries), and
+    the entity table's two, B labels and the 2,048 rows of the negative
+    pool, uniform over the documents.  Returns (name, rows, descriptors)."""
+    b, w = sizes["batch"], sizes["window"]
+    zipf = torch.arange(1, sizes["num_words"] + 1, dtype=torch.float64, device=device)
+    zipf = zipf.pow(-1.07).to(torch.float32)
+    word = SparseGrad(
+        torch.randn((b, sizes["word_dim"]), device=device, generator=gen) * 1e-3,
+        torch.multinomial(zipf, b * w, replacement=True, generator=gen).reshape(b, w), None)
+    entity = tuple(
+        SparseGrad(torch.randn((n, sizes["entity_dim"]), device=device, generator=gen) * 1e-3,
+                   torch.randint(0, sizes["num_entities"], (n, 1), device=device, generator=gen),
+                   None)
+        for n in (b, 2048))
+    return [("word", sizes["num_words"], (word,)), ("entity", sizes["num_entities"], entity)]
+
+
+def check_segment_sum(name, num_rows, descs):
+    """The segment sum under bfloat16 streams against its plain version on
+    the same plan, bitwise, and against a float64 sum of the same rounded
+    terms within n * 2^-24 * mass in every row and column (n terms in the
+    row), the bound of a float32 sum in any order.  Returns the max abs
+    difference from float64, its largest share of that bound and the
+    plain version's seconds (one call, driven from the host)."""
+    stream = torch.bfloat16
+    before = segment_kernels.segment_sum.launches
+    got = segment_kernels.segment_sum(num_rows, descs, stream)
+    plan = segment_kernels.plan_segments(num_rows, descs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = segment_kernels.segment_sum_plain(num_rows, descs, stream, plan)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if segment_kernels.segment_sum.launches != before + 1:
+        raise AssertionError(f"segment_sum did not launch its kernel on the {name} table")
+    if not torch.equal(got, ref):
+        raise AssertionError(
+            f"segment sum of the {name} table differs from the plain version: max abs "
+            f"{float((got - ref).abs().max()):.3e}")
+    del ref
+    wide = tuple(d._replace(grad=d.grad.double()) for d in descs)
+    exact = segment_kernels.index_add_sum(num_rows, wide, stream)
+    mass = segment_kernels.index_add_sum(
+        num_rows, tuple(d._replace(grad=d.grad.abs()) for d in wide), stream)
+    count = torch.bincount(torch.cat([d.indices.reshape(-1) for d in descs]), minlength=num_rows)
+    err = (got.double() - exact).abs()
+    limit = count.to(torch.float64)[:, None] * 2.0 ** -24 * mass
+    if bool((err > limit).any()):
+        raise AssertionError(
+            f"segment sum of the {name} table misses n * 2^-24 * mass by "
+            f"{float((err - limit).max()):.3e}")
+    share = float((err / limit.clamp(min=1e-300)).max())
+    return float(err.max()), share, plain_s, int(count.max())
+
+
+def phase_segment_sum(device, sizes, gen):
+    """The segment sum at both of nvsm.train's tables: checked, then timed
+    with its plan, its two passes alone, and ``index_add_sum``, the
+    library path it replaced, which the CPU keeps."""
+    totals, err, num_bytes, ops = {}, 0.0, 0, 0
+    for name, num_rows, descs in segment_operands(device, sizes, gen):
+        e, share, plain_s, longest = check_segment_sum(name, num_rows, descs)
+        err = max(err, e)
+        plan = segment_kernels.plan_segments(num_rows, descs)
+        t = dict(
+            ms=statistics.median(back_to_back_ms(
+                lambda: segment_kernels.segment_sum(num_rows, descs, torch.bfloat16))),
+            ms_per_call=statistics.median(cuda_ms(
+                lambda: segment_kernels.segment_sum(num_rows, descs, torch.bfloat16), reps=40)),
+            passes_ms=statistics.median(back_to_back_ms(
+                lambda: segment_kernels._launch(num_rows, descs, torch.bfloat16, plan))),
+            library_ms=statistics.median(back_to_back_ms(
+                lambda: segment_kernels.index_add_sum(num_rows, descs, torch.bfloat16))),
+            library_ms_per_call=statistics.median(cuda_ms(
+                lambda: segment_kernels.index_add_sum(num_rows, descs, torch.bfloat16), reps=40)),
+            plain_ms=1e3 * plain_s, plain_ms_per_call=1e3 * plain_s,
+        )
+        dim = descs[0].grad.shape[1]
+        entries = sum(d.indices.numel() for d in descs)
+        # The gradient rows read once, the ids (int64), the table written.
+        moved = sum(d.grad.numel() * 4 + d.indices.numel() * 8 for d in descs) + num_rows * dim * 4
+        log(f"A segment sum {name} [{num_rows}, {dim}] from {entries} entries (longest row "
+            f"{longest}): bitwise equal to the plain version; max abs err vs float64 {e:.3e}, "
+            f"{share:.3f} of n*2^-24*mass; kernel_ms={t['ms']:.4f} with the plan, passes "
+            f"{t['passes_ms']:.4f} (20 back to back), per call {t['ms_per_call']:.4f}; "
+            f"index_add_sum {t['library_ms']:.4f}, per call {t['library_ms_per_call']:.4f}; "
+            f"plain one call {t['plain_ms']:.1f}; bound {bound(moved, entries * dim)['bound_ms']:.4f}")
+        totals = {k: totals.get(k, 0.0) + t[k] for k in t}
+        num_bytes, ops = num_bytes + moved, ops + entries * dim
+        del plan
+    return dict(max_abs_err=err, **totals, **bound(num_bytes, ops))
+
+
 def phase_a(device, sizes):
     """Each kernel against its plain version at the main path's shapes."""
     out = {}
@@ -490,6 +592,15 @@ def phase_a(device, sizes):
     # is plain_ms.  4 B read and 2 B written per element.
     out["cast"] = dict(max_abs_err=err, **t, **bound(6 * x.numel(), CAST_OPS * x.numel()),
                        library_ms=t["plain_ms"])
+    del operands, x, y
+
+    t0 = time.perf_counter()
+    cuda_build.build_library("segment_sum", ("segment_sum.cu",))
+    log(f"A nvcc build of the segment sum: {time.perf_counter() - t0:.1f}s")
+    # ms and passes_ms: the two tables' calls with their plans and the
+    # kernels' passes alone; library_ms: index_add_sum, one index_add_ per
+    # window slot into a zeroed table.
+    out["segsum"] = phase_segment_sum(device, sizes, gen)
     return out
 
 
@@ -669,21 +780,37 @@ def phase_c(device, params_b, corpus_b):
     return dict(map=map_, rank_ms=rank_ms, device_rank_ms=kernel_ms)
 
 
+# The counts that ``launch_counts`` reads: the sweep's and the cast's
+# launches, the segment sum's launches and full_adam's accumulations that
+# fell back to ``index_add_`` (``segment_kernels.index_add_sum``).
+LAUNCH_KEYS = ("sweep", "cast", "segsum", "index_add")
+# A canonical step: 2 sweeps, 1 cast, 2 segment sums, no fallback.
+CANONICAL_LAUNCHES = {"sweep": 2, "cast": 1, "segsum": 2, "index_add": 0}
+
+
+def no_launches() -> dict:
+    return dict.fromkeys(LAUNCH_KEYS, 0)
+
+
 def reset_launches():
     adam_sweep.fused_adam_dense_sweep.launches = 0
     cast.cast_table.launches = 0
+    segment_kernels.segment_sum.launches = 0
+    segment_kernels.index_add_sum.calls = 0
 
 
 def launch_counts() -> dict:
     return {"sweep": adam_sweep.fused_adam_dense_sweep.launches,
-            "cast": cast.cast_table.launches}
+            "cast": cast.cast_table.launches,
+            "segsum": segment_kernels.segment_sum.launches,
+            "index_add": segment_kernels.index_add_sum.calls}
 
 
 def read_launches(steps, phase, per_step=None):
     """The launch counts since ``reset_launches``; raises unless the path
-    launched each kernel ``per_step`` times per step (by default the sweep
-    twice and the cast once)."""
-    per_step = per_step or {"sweep": 2, "cast": 1}
+    launched each kernel ``per_step`` times per step (by default
+    ``CANONICAL_LAUNCHES``)."""
+    per_step = per_step or CANONICAL_LAUNCHES
     launches = launch_counts()
     if launches != {key: n * steps for key, n in per_step.items()}:
         raise AssertionError(f"{phase}: kernel launches {launches} for {steps} steps, "
@@ -864,10 +991,12 @@ def variant_desc_cfg(sizes, name, **cfg_overrides):
 
 
 def expected_launches(cfg, desc, num_entities) -> dict:
-    """Kernel launches per step: the sweep twice under full_adam; the cast
-    once where the pooled, shared or factored path runs under bfloat16
-    streams, none on the expanded per-instance path (the window-averaged
-    optimizers, the entity L2 normalizer)."""
+    """Kernel launches per step: the sweep twice under full_adam, and one
+    accumulation a table, the segment sum with a float32 accumulator and
+    ``index_add_`` with a bfloat16 one; the cast once where the pooled,
+    shared or factored path runs under bfloat16 streams, none on the
+    expanded per-instance path (the window-averaged optimizers, the entity
+    L2 normalizer)."""
     full_adam = (cfg.update_method == UpdateMethod.ADAM
                  and cfg.adam.mode == AdamMode.DENSE_UPDATE_DENSE_VARIANCE)
     pool, _ = resolve_negative_sampling(cfg, desc, cfg.batch_size, num_entities)
@@ -875,7 +1004,10 @@ def expected_launches(cfg, desc, num_entities) -> dict:
                 and not desc.l2_normalize_entity_reprs)
     streams = cfg.resolved_stream_dtype() == "bfloat16"
     casts = streams and (pool > 0 or cfg.shared_negatives or factored)
-    return {"sweep": 2 if full_adam else 0, "cast": 1 if casts else 0}
+    narrow = cfg.resolved_accum_dtype() == "bfloat16"
+    return {"sweep": 2 if full_adam else 0, "cast": 1 if casts else 0,
+            "segsum": 2 if full_adam and not narrow else 0,
+            "index_add": 2 if full_adam and narrow else 0}
 
 
 def phase_e0(device):
@@ -1013,7 +1145,7 @@ def phase_e(device, sizes, corpus, seed):
     """Every E configuration at full width; returns the summed launches."""
     dc = device_sampler.prepare_device_corpus(corpus, device)
     permute, _ = device_sampler.make_epoch_permuter(dc)
-    total = {"sweep": 0, "cast": 0}
+    total = no_launches()
     for name, (cfg_kw, _) in E_CONFIGS.items():
         if "text_entity_weight" in cfg_kw:
             desc, cfg, steps, stats = e_composite(device, sizes, name, corpus, seed)
@@ -1115,12 +1247,14 @@ def phase_f1(device, sizes, corpus, seed, tmp):
     costs = [initial[0]] + [c for c, _, _ in epochs]
     if not (len(epochs) == 2 and all(np.isfinite(costs)) and costs[-1] < costs[0]):
         raise AssertionError(f"F1: initial and epoch costs {costs}")
-    # The initial-cost pass is forward only: no sweep.  The trained steps
-    # launch the sweep twice and the cast once each.
+    # The initial-cost pass is forward only: no sweep, no accumulation.  The
+    # trained steps launch the sweep twice, the cast once and the segment
+    # sum twice each.
     at_initial = logs.at_initial_cost
     trained = {key: launches[key] - at_initial[key] for key in launches}
     steps = sum(n for _, n, _ in epochs)
-    if at_initial["sweep"] != 0 or trained != {"sweep": 2 * steps, "cast": steps}:
+    if (any(at_initial[key] for key in ("sweep", "segsum", "index_add"))
+            or trained != {key: n * steps for key, n in CANONICAL_LAUNCHES.items()}):
         raise AssertionError(f"F1: launches {at_initial} in the initial-cost pass and "
                              f"{trained} over {steps} trained steps")
     log(f"F1 launches: initial-cost pass {at_initial} over {initial[1]} batches; "
@@ -1278,8 +1412,10 @@ def phase_f3(device, tmp):
              "--max_vocabulary_size", "0", "--min_document_frequency", "0",
              "--max_document_frequency", "0"]
     out = []
-    for name, dev, per_step in (("card", device, {"sweep": 2, "cast": 0}),
-                                ("cpu", torch.device("cpu"), {"sweep": 0, "cast": 0})):
+    # The CPU's tables take the plain sweep and index_add_.
+    for name, dev, per_step in (
+            ("card", device, {"sweep": 2, "cast": 0, "segsum": 2, "index_add": 0}),
+            ("cpu", torch.device("cpu"), {"sweep": 0, "cast": 0, "segsum": 0, "index_add": 2})):
         prefix = os.path.join(tmp, f"reference_{name}")
         reset_launches()
         logs, wall_s = run_command(train_cli.main, [*flags, "--output", prefix, "--device",
@@ -1444,7 +1580,7 @@ def phase_g1(device, sizes, corpus, queries, qrels, tmp, reader_build_s):
 
 def phase_g2(device, study, corpus, queries, qrels):
     """Quality parity: one seed of each configuration of the study."""
-    total = {"sweep": 0, "cast": 0}
+    total = no_launches()
     for config in ("perinst", "pool2048_s205"):
         cfg = study.study_config(config, 1)
         torch.cuda.synchronize()
@@ -1626,11 +1762,12 @@ def phase_g4(device, sizes, corpus, seed):
 
     dc = device_sampler.prepare_device_corpus(corpus, device)
     permute, _ = device_sampler.make_epoch_permuter(dc)
-    runs, total = {}, {"sweep": 0, "cast": 0}
+    runs, total = {}, no_launches()
     for accum in ("bfloat16", "float32"):
         desc_, cfg, steps, stats, costs = e_on_device(device, sizes, None, dc, permute, seed,
                                                       accum_dtype=accum)
-        launches = read_launches(steps, f"G4 {accum}")
+        launches = read_launches(steps, f"G4 {accum}",
+                                 expected_launches(cfg, desc_, sizes["num_entities"]))
         total = {key: total[key] + launches[key] for key in total}
         runs[accum] = (stats, costs)
         log(f"G4 accum_dtype={accum} " + json.dumps(stats))
@@ -1657,17 +1794,15 @@ def phase_g(device, sizes, corpus_b, prefix, seed, tmp, reader_build_s):
              phase_g2(device, study, corpus, queries, qrels)]
     phase_g3(device, corpus_b, prefix, 2, seed, tmp)
     parts.append(phase_g4(device, sizes, corpus_b, seed))
-    return {key: sum(p[key] for p in parts) for key in ("sweep", "cast")}
+    return {key: sum(p[key] for p in parts) for key in LAUNCH_KEYS}
 
 
 
 # H1: the mesh run against the single-device run of the same seed, both
-# float32 on the card.  Two runs of one seed with PyTorch's default kernels
-# are not equal: ``index_add_`` adds its rows with atomics, in no fixed order,
-# and 117 Adam steps amplify the last bit (two single-device runs differ by
-# up to 6.5e-4 after an epoch, and by nothing under
-# ``torch.use_deterministic_algorithms``: ``scripts/run_to_run_spread_torch.py``
-# on an NVIDIA H100 at 700 W).  So the epoch is trained twice on either side:
+# float32 on the card.  Wherever a sum of a step adds in no fixed order (a
+# scatter with atomics, a collective), 117 Adam steps amplify its last bit
+# (``scripts/run_to_run_spread_torch.py`` measures two single-device runs).
+# So the epoch is trained twice on either side:
 # with the default kernels, for the time, the launches and the cost, and with
 # deterministic algorithms, where the tables are held entry by entry.  The
 # mesh is also held after two calls of K steps with the default kernels,
@@ -1792,7 +1927,7 @@ def phase_h2(device, sizes, corpus, tmp, seed):
 
 def phase_h(device, sizes, corpus, tmp, seed):
     parts = [phase_h1(device, sizes, corpus, tmp), phase_h2(device, sizes, corpus, tmp, seed)]
-    return {key: sum(p[key] for p in parts) for key in ("sweep", "cast")}
+    return {key: sum(p[key] for p in parts) for key in LAUNCH_KEYS}
 
 
 # ---------------------------------------------------------------------------
@@ -1857,7 +1992,7 @@ def i_adhoc(name, device, sizes, tmp, mesh):
             "--word_repr_size", str(sizes["word_dim"]), "--entity_repr_size", str(sizes["entity_dim"]),
             "--on_device_sampling", "--steps_per_call", str(sizes["steps_per_call"]),
             "--stream_dtype", "bfloat16", "--window_sum_dtype", "bfloat16", "--device", str(device)]
-    stages, launches = [], {"sweep": 0, "cast": 0}
+    stages, launches = [], no_launches()
     for stage, extra in ((1, ["--fail_after_epoch", "2"]), (2, ["--resume"])):
         if mesh:
             extra = extra + mesh_launch_flags(tmp, f"{name}_rendezvous{stage}")
@@ -2020,7 +2155,7 @@ def phase_i4(device, sizes, tmp, seed):
         "--eval_every", "1", "--batch_size", str(sizes["batch"]),
         "--word_repr_size", str(sizes["word_dim"]), "--entity_repr_size", str(sizes["entity_dim"]),
         "--planted_split", paths["planted_split"], "--device", str(device),
-    ], "I4 Mix 'n Match", {"sweep": 2, "cast": 0})
+    ], "I4 Mix 'n Match", {"sweep": 2, "cast": 0, "segsum": 2, "index_add": 0})
     stats = dict(results=results, epochs=epochs, wall_s=wall_s,
                  ms_per_step=[1e3 * sec / n for _, _, n, sec in epochs])
     log("I4 " + json.dumps(stats))
@@ -2060,7 +2195,7 @@ def phase_i(device, sizes, tmp, fixture, seed):
                 phase_i4(device, sizes, tmp, seed)]
     total = time.perf_counter() - t0
     log(f"I done in {total:.1f}s (I1 + I2 {i12_s:.1f}s; budget {I_BUDGET_S:.0f}s)")
-    return {key: sum(p[key] for p in launches) for key in ("sweep", "cast")}
+    return {key: sum(p[key] for p in launches) for key in LAUNCH_KEYS}
 
 
 # Phase J: the last scripts of the JAX package.  The Reuters pipeline runs
@@ -2163,7 +2298,7 @@ def phase_j1(device, sizes, tmp, seed):
         "--batch_size", str(sizes["reuters_batch"]),
         "--word_repr_size", str(sizes["reuters_word_dim"]),
         "--entity_repr_size", str(sizes["reuters_entity_dim"]), "--device", str(device)],
-        "J1 Reuters", {"sweep": 2, "cast": 0})
+        "J1 Reuters", {"sweep": 2, "cast": 0, "segsum": 2, "index_add": 0})
     with open(os.path.join(wd, "metrics.json")) as f:
         metrics = json.load(f)
     curve = metrics["class_silhouette_cosine_by_epoch"]
@@ -2300,7 +2435,7 @@ def phase_j(device, sizes, tmp, seed):
     phase_j5(device, sizes)
     total = time.perf_counter() - t0
     log(f"J done in {total:.1f}s (budget {J_BUDGET_S:.0f}s)")
-    return {key: j1[key] + j2[key] + j4[key] for key in ("sweep", "cast")}
+    return {key: j1[key] + j2[key] + j4[key] for key in LAUNCH_KEYS}
 
 
 def gpu_name_and_power() -> str:
@@ -2349,14 +2484,19 @@ def main():
             fixture[0].kill()
             fixture[0].wait()
         shutil.rmtree(tmp_i)
-    launches = {key: sum(p[key] for p in by_path.values()) for key in ("sweep", "cast")}
+    launches = {key: sum(p[key] for p in by_path.values()) for key in LAUNCH_KEYS}
 
     meta = {
         "sweep": ("fused_adam_dense_sweep", "triton", "cunvsm_torch/ops/adam_sweep.py",
                   "cunvsm_tpu/ops/adam_sweep.py:72"),
         "cast": ("cast_table", "cuda", "cunvsm_torch/csrc/cast_bf16.cu",
                  "cunvsm_tpu/ops/cast.py:31"),
+        "segsum": ("segment_sum", "cuda", "cunvsm_torch/csrc/segment_sum.cu",
+                   "cunvsm_tpu/optim/updates.py:207 (XLA's sorted segment sum)"),
     }
+    kernels["segsum"].update(
+        index_add_fallbacks=launches["index_add"],
+        index_add_fallbacks_by_path={path: p["index_add"] for path, p in by_path.items()})
     print(json.dumps({"kernels": [
         {"name": name, "route": route, "source": src, "replaces": rep,
          "launches": launches[key], **kernels[key],

@@ -26,9 +26,11 @@ Port of ``cunvsm_tpu/optim/updates.py`` (the single-device paths):
 * the step counter t starts at 1 (updates.h:197).
 
 Where the JAX package returns new arrays (and donates the old buffers),
-this package updates the parameter and state tensors in place.  Every
-scatter adds one window slot at a time with ``index_add_`` over the [B, d]
-gradient rows, so the [B*W, d] update stream is never materialized.
+this package updates the parameter and state tensors in place.  The
+scatters of sgd, Adagrad and the sparse Adam modes add one window slot at a
+time with ``index_add_`` over the [B, d] gradient rows, so the [B*W, d]
+update stream is never materialized; full_adam's dense accumulation is one
+sorted segment sum a table on a card (``_sorted_segment_accumulate``).
 
 Under a mesh (``Optimizer(cfg, mesh=)``, ``parallel/mesh.py``) the
 optimizer is one rank's part of the SPMD program:
@@ -66,7 +68,8 @@ from cunvsm_torch.config import AdamMode, TrainConfig, UpdateMethod
 from cunvsm_torch.models.objectives import AscentGrads, SparseGrad
 from cunvsm_torch.models.params import ModelParams, tensor_from_numpy
 from cunvsm_torch.ops.adam_sweep import fused_adam_dense_sweep
-from cunvsm_torch.ops.segment_kernels import sorted_segment_sum
+from cunvsm_torch.ops import segment_kernels
+from cunvsm_torch.ops.segment_kernels import keep_owned, sorted_segment_sum
 from cunvsm_torch.spans import span
 
 
@@ -163,7 +166,7 @@ def _scatter_add(table: torch.Tensor, desc: SparseGrad, scale) -> None:
             upd = upd * desc.weights[:, w, None].to(upd.dtype)
         upd = scale * upd
         if desc.owned is not None:
-            upd = _keep_owned(upd, desc.owned[:, w, None])
+            upd = keep_owned(upd, desc.owned[:, w, None])
         sorted_segment_sum(table, desc.indices[:, w], upd)
 
 
@@ -176,14 +179,8 @@ def _scatter_add_scalar(
         upd = upd * desc.weights.to(upd.dtype)
     upd = scale * upd
     if desc.owned is not None:
-        upd = _keep_owned(upd, desc.owned)
+        upd = keep_owned(upd, desc.owned)
     vec.index_add_(0, desc.indices.reshape(-1), upd.reshape(-1))
-
-
-def _keep_owned(upd: torch.Tensor, owned: torch.Tensor) -> torch.Tensor:
-    """``upd`` where ``owned``, zero elsewhere (a selection: a NaN or inf
-    computed for a row of another owner is dropped, not multiplied)."""
-    return torch.where(owned, upd, torch.zeros((), dtype=upd.dtype, device=upd.device))
 
 
 def localize_descriptor(desc: SparseGrad, shard_rows: int, model_index: int) -> SparseGrad:
@@ -224,33 +221,22 @@ def _sorted_segment_accumulate(
 
     Duplicate indices accumulate.  Under a ``stream_dtype`` the gradient
     rows (and weights) are rounded to it *before* the product, which runs
-    at stream width, and widened to the gradient dtype before the sum
-    (``_finish`` in the JAX package).  Each window slot adds its B rows
-    with one ``index_add_``, so the [B*W, d] update stream is never
-    materialized.  Under an ``accum_dtype`` the weighted rows are cast to
-    it and summed into an accumulator of that dtype, which is returned as
-    it is (the consumer widens): with bfloat16 the partial sums round, to
-    a relative error of about 2^-9 * sqrt(updates per row), and on a CUDA
-    device, where ``index_add_`` adds in no fixed order, two runs of one
-    step may differ in the accumulator's last bit.
+    at stream width, and widened to the accumulator's dtype before the sum
+    (``_finish`` in the JAX package).  On a card with a float32 accumulator
+    all of the table's descriptors go through one sorted segment sum
+    (``ops/segment_kernels.py:segment_sum``): the entries sorted by row and
+    each row summed in that order (a row that crosses a chunk boundary of
+    the sorted array by pieces, then the pieces in order), every row written
+    once, so two runs of a step give the same bits.  A CPU table and an
+    ``accum_dtype`` of bfloat16 keep ``index_add_sum``, one ``index_add_``
+    per window slot: with bfloat16 the partial sums round, to a relative
+    error of about 2^-9 * sqrt(updates per row), the accumulator is returned
+    as it is (the consumer widens), and on a card the adds run in no fixed
+    order.
     """
-    out_dtype = accum_dtype or descs[0].grad.dtype
-    out = torch.zeros(
-        (num_rows, descs[0].grad.shape[1]), dtype=out_dtype,
-        device=descs[0].grad.device,
-    )
-    for d in descs:
-        grad = d.grad
-        if stream_dtype is not None and stream_dtype != grad.dtype:
-            grad = grad.to(stream_dtype)
-        widened = grad.to(out_dtype)
-        weights = None if d.weights is None else d.weights.to(grad.dtype)
-        for w in range(d.indices.shape[1]):
-            upd = widened if weights is None else (grad * weights[:, w, None]).to(out_dtype)
-            if d.owned is not None:
-                upd = _keep_owned(upd, d.owned[:, w, None])
-            sorted_segment_sum(out, d.indices[:, w], upd)
-    return out
+    if segment_kernels.kernel_takes(descs, stream_dtype, accum_dtype):
+        return segment_kernels.segment_sum(num_rows, descs, stream_dtype)
+    return segment_kernels.index_add_sum(num_rows, descs, stream_dtype, accum_dtype)
 
 
 def _every_rank_slice(desc: SparseGrad, mesh) -> SparseGrad:

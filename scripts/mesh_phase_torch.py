@@ -23,8 +23,10 @@ a deadline and kills the rest when one fails or is late.  Every rank:
    ``make_device_sampled_sharded_multistep`` (canonical configuration:
    V 65536, N 262144, d 300 -> 256, B 51200, W 10, k 10, pool 2048 / stride
    205, full_adam, bfloat16 streams), then fetches the tables;
-3. counts its kernel launches (2 sweeps and 1 cast per step, the entity
-   sweep over its [N / model, 256] shard) and its collectives by name;
+3. counts its kernel launches (2 sweeps, 1 cast and 2 segment sums per
+   step, the entity sweep over its [N / model, 256] shard, the word segment
+   sum over the rank's slice of its data group's descriptors; no
+   ``index_add_`` accumulation) and its collectives by name;
 4. takes one host-fed step with N - 1 entities, which pads the table;
 5. trains one epoch through ``train_model(mesh=, shard_corpus=True)`` with a
    model file and a resume file, on the canonical documents cut to 12
@@ -77,9 +79,9 @@ from cunvsm_torch.data.corpus import Corpus  # noqa: E402
 from cunvsm_torch.data.instances import TextEntitySource  # noqa: E402
 from cunvsm_torch.data.synth import zipf_corpus  # noqa: E402
 from cunvsm_torch.io import checkpoint  # noqa: E402
-from cunvsm_torch.models.objectives import TextEntityBatch  # noqa: E402
+from cunvsm_torch.models.objectives import SparseGrad, TextEntityBatch  # noqa: E402
 from cunvsm_torch.models.params import ModelParams, init_params  # noqa: E402
-from cunvsm_torch.ops import adam_sweep, cast  # noqa: E402
+from cunvsm_torch.ops import adam_sweep, cast, segment_kernels  # noqa: E402
 from cunvsm_torch.optim.updates import Optimizer  # noqa: E402
 from cunvsm_torch.parallel import distributed, mesh as pmesh  # noqa: E402
 from cunvsm_torch.query.engine import QueryEngine  # noqa: E402
@@ -137,12 +139,21 @@ def desc_cfg(sizes, reduce_dtype="float32", stream_dtype="bfloat16"):
 
 def launch_counts() -> dict:
     return {"sweep": adam_sweep.fused_adam_dense_sweep.launches,
-            "cast": cast.cast_table.launches}
+            "cast": cast.cast_table.launches,
+            "segsum": segment_kernels.segment_sum.launches,
+            "index_add": segment_kernels.index_add_sum.calls}
+
+
+def per_step_launches(steps: int) -> dict:
+    """The launches of ``steps`` canonical steps on a card."""
+    return {"sweep": 2 * steps, "cast": steps, "segsum": 2 * steps, "index_add": 0}
 
 
 def reset_launches() -> None:
     adam_sweep.fused_adam_dense_sweep.launches = 0
     cast.cast_table.launches = 0
+    segment_kernels.segment_sum.launches = 0
+    segment_kernels.index_add_sum.calls = 0
 
 
 def sync(device) -> None:
@@ -368,6 +379,8 @@ def build_kernels(device) -> None:
     adam_sweep.fused_adam_dense_sweep(
         x.clone(), x.clone(), x.clone(), x.clone(), torch.ones((), device=device),
         lam=0.0, beta1=0.9, beta2=0.999, eps=1e-6)
+    segment_kernels.segment_sum(
+        8, (SparseGrad(x, torch.zeros((8, 1), dtype=torch.int64, device=device), None),))
     torch.cuda.synchronize(device)
 
 
@@ -484,16 +497,17 @@ def run(mesh_shape, backend, devices, sizes, corpus, out, seed=0):
     data, model = pmesh.parse_mesh_shape(mesh_shape)
     k, n_ent = sizes["steps_per_call"], sizes["num_entities"]
 
-    # Every rank launched the same kernels: 2 sweeps and 1 cast per step,
-    # the entity sweep over its [N / model, d] shard.
+    # Every rank launched the same kernels: 2 sweeps, 1 cast and 2 segment
+    # sums per step, the entity sweep over its [N / model, d] shard.
     launches = reports[0]["launches"]
     for rep in reports:
         if rep["launches"] != launches:
             raise AssertionError(f"rank {rep['rank']} counted {rep['launches']}, rank 0 {launches}")
         if rep["shard_rows"] != pmesh.pad_entities(n_ent, model) // model:
             raise AssertionError(f"rank {rep['rank']} holds {rep['shard_rows']} entity rows")
-    if on_card and launches != {"sweep": 2 * k, "cast": k}:
-        raise AssertionError(f"{launches} launches for {k} steps, expected 2 sweeps + 1 cast each")
+    if on_card and launches != per_step_launches(k):
+        raise AssertionError(f"{launches} launches for {k} steps, expected "
+                             f"{per_step_launches(1)} each")
     for rep in reports:
         p = rep["padded"]
         if not (np.isfinite(p["cost"]) and p["padded_row_zero"] and p["fetched_rows"] == n_ent - 1
@@ -518,7 +532,7 @@ def run(mesh_shape, backend, devices, sizes, corpus, out, seed=0):
         if (got["steps"], got["launches"]) != (sharded["steps"], sharded["launches"]):
             raise AssertionError(f"sharded corpus, rank {rep['rank']}: {got}, rank 0 {sharded}")
     steps = sharded["steps"]
-    if steps <= k or (on_card and sharded["launches"] != {"sweep": 2 * steps, "cast": steps}):
+    if steps <= k or (on_card and sharded["launches"] != per_step_launches(steps)):
         raise AssertionError(f"sharded corpus: {steps} steps, launches {sharded['launches']}")
     if not {"shard_1.hdf5", "shard_meta", "shard_resume.npz"} <= set(sharded["wrote"]):
         raise AssertionError(f"sharded corpus: the primary wrote {sharded['wrote']}")

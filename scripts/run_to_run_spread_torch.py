@@ -9,12 +9,13 @@ from one seed on one CUDA card, in three settings, and prints for each the
 largest and the root-mean-square difference of every table between the two
 runs, and the share of the entries that differ by more than 5e-6:
 
-* ``default``: bfloat16 streams, PyTorch's default kernels, whose
-  ``index_add_`` adds its rows with atomics, in no fixed order;
+* ``default``: bfloat16 streams and the default kernels: PyTorch's, and
+  the optimizer's sorted segment sum, which adds in a fixed order;
 * ``deterministic``: the same under
   ``torch.use_deterministic_algorithms(True, warn_only=True)``, which makes
-  ``index_add_`` add in a fixed order.  If the two runs are then equal to
-  the last bit, the order of those additions is the whole of the spread;
+  PyTorch's scatters add in a fixed order too.  If the two runs are then
+  equal to the last bit, the order of those additions is the whole of the
+  spread;
 * ``float32_streams``: default kernels with float32 streams, which takes the
   bfloat16 roundings out and leaves Adam's amplification of the order alone.
 

@@ -187,6 +187,7 @@ JAX_FREE_SOURCES = (
     os.path.join("scripts", "collection_scale_study_torch.py"),
     os.path.join("scripts", "repeat_phase_f.py"),
     os.path.join("scripts", "run_to_run_spread_torch.py"),
+    os.path.join("scripts", "segment_sum_variants_torch.py"),
     os.path.join("scripts", "rank_adhoc_torch.py"),
     os.path.join("scripts", "rank_cranfield_torch.py"),
     os.path.join("scripts", "product_substitutability_torch.py"),

@@ -2,7 +2,7 @@
 against the same training run eagerly, on the card.
 
 Both runs train from one seed under ``torch.use_deterministic_algorithms``
-(the optimizer's ``index_add_`` otherwise adds its rows in no fixed order);
+(PyTorch's scatters otherwise add their rows in no fixed order);
 the eager run takes the step's own eager path, with ``graph_signature``
 answering None as it does for a mesh.  The tables, the optimizer state and
 every step's cost are bitwise equal on the on-device path (pooled bfloat16

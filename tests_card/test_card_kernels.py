@@ -1,10 +1,12 @@
-"""Both hand-written kernels against their plain versions, on the card."""
+"""The hand-written kernels against their plain versions, on the card."""
 
 import numpy as np
 import pytest
 import torch
 
-from cunvsm_torch.ops import adam_sweep, cast
+from cunvsm_torch.models.objectives import SparseGrad
+from cunvsm_torch.ops import adam_sweep, cast, segment_kernels
+from cunvsm_torch.optim import updates
 
 HYPER = dict(lam=0.01 / 51200, beta1=0.9, beta2=0.999, eps=1e-6)
 
@@ -87,3 +89,126 @@ def test_cast_kernel_bitwise_on_card(cuda, case):
     nan = torch.isnan(ref)
     assert torch.equal(torch.isnan(y), nan)
     assert torch.equal(y.view(torch.int16)[~nan], ref.view(torch.int16)[~nan])
+
+
+# Segment-sum cases: (rows, width, stream, descriptors as (instances,
+# window, weighted, Zipf exponent of the rows, some rows owned elsewhere)).
+SEGMENT_CASES = {
+    # nvsm.train's word table: 51,200 windows of 10 Zipf 1.07 words.
+    "nvsm_words": (65536, 300, torch.bfloat16, [(51200, 10, False, 1.07, False)]),
+    # nvsm.train's entity table: the labels and the pool of 2,048.
+    "nvsm_entities": (262144, 256, torch.bfloat16,
+                      [(51200, 1, False, 0.0, False), (2048, 1, False, 0.0, False)]),
+    # mixnmatch.train's: labels, pool and the 102,400 rows of the pair stream.
+    "mix_entities": (65536, 256, None, [(51200, 1, False, 0.0, False),
+                                        (2048, 1, False, 0.0, False),
+                                        (102400, 1, False, 0.667, False)]),
+    # the expanded layout's weighted descriptor, and a width no multiple of 4
+    "weighted_narrow": (1000, 3, torch.bfloat16,
+                        [(4000, 4, True, 1.07, False), (300, 2, True, 0.0, False)]),
+    # two column tiles, float32 weights, rows owned elsewhere dropped
+    "wide_owned": (5000, 600, None, [(20000, 2, True, 1.07, True)]),
+}
+
+
+def _segment_case(name, cuda, seed=0):
+    rows, dim, stream, layout = SEGMENT_CASES[name]
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    descs = []
+    for inst, window, weighted, exponent, owned in layout:
+        p = torch.arange(1, rows + 1, device=cuda, dtype=torch.float64).pow(-exponent)
+        idx = torch.multinomial(p.float(), inst * window, replacement=True, generator=g)
+        descs.append(SparseGrad(
+            torch.randn((inst, dim), device=cuda, generator=g) * 1e-3,
+            idx.reshape(inst, window),
+            torch.rand((inst, window), device=cuda, generator=g) * 2 - 0.5 if weighted else None,
+            torch.rand((inst, window), device=cuda, generator=g) < 0.8 if owned else None,
+        ))
+    return rows, tuple(descs), stream
+
+
+def _float64_scatter(rows, descs, stream):
+    """(sum, sum of |term|, terms a row) in float64 of the kernel's rounded
+    terms."""
+    dim = descs[0].grad.shape[1]
+    exact = torch.zeros((rows, dim), dtype=torch.float64, device=descs[0].grad.device)
+    mass, count = torch.zeros_like(exact), torch.zeros_like(exact[:, 0])
+    for d in descs:
+        grad = d.grad if stream is None else d.grad.to(stream)
+        t = grad[:, None, :].expand(*d.indices.shape, -1)
+        if d.weights is not None:
+            t = t * d.weights.to(grad.dtype)[:, :, None]
+        t = t.reshape(-1, dim).double()
+        idx = d.indices.reshape(-1)
+        keep = torch.ones_like(idx, dtype=torch.bool) if d.owned is None else d.owned.reshape(-1)
+        exact.index_add_(0, idx[keep], t[keep])
+        mass.index_add_(0, idx[keep], t[keep].abs())
+        count.index_add_(0, idx[keep], torch.ones_like(idx[keep], dtype=torch.float64))
+    return exact, mass, count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
+def test_segment_sum_kernel_matches_plain_bitwise_on_card(cuda, case):
+    """The kernel's sums are bitwise those of its plain version (the same
+    plan, the same adds in the same order), within float32 rounding of a
+    float64 scatter of the same terms (n * 2^-24 * sum |term|), zero where
+    no entry falls, and bitwise the same in a second run."""
+    rows, descs, stream = _segment_case(case, cuda)
+    before = segment_kernels.segment_sum.launches
+    got = segment_kernels.segment_sum(rows, descs, stream)
+    torch.cuda.synchronize()
+    assert segment_kernels.segment_sum.launches == before + 1
+    assert torch.equal(got, segment_kernels.segment_sum_plain(rows, descs, stream))
+    exact, mass, count = _float64_scatter(rows, descs, stream)
+    assert torch.all((got.double() - exact).abs() <= count[:, None] * 2.0 ** -24 * mass)
+    assert torch.all(got[count == 0] == 0) and bool((count == 0).any())
+    assert int(count.max()) > 2 * segment_kernels.CHUNK or case == "nvsm_entities"
+    assert torch.equal(segment_kernels.segment_sum(rows, descs, stream), got)
+
+
+@pytest.mark.cuda
+def test_segment_sum_runs_without_a_sync_and_replays_from_a_graph(cuda):
+    """Plan and kernel never wait for the card, and one CUDA-graph capture
+    of them replays to the eager bits, also after the gradient changes in
+    place."""
+    rows, descs, stream = _segment_case("nvsm_words", cuda)
+    eager = segment_kernels.segment_sum(rows, descs, stream)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = segment_kernels.segment_sum(rows, descs, stream)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(again, eager)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        segment_kernels.segment_sum(rows, descs, stream)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = segment_kernels.segment_sum(rows, descs, stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    descs[0].grad.mul_(-3.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, segment_kernels.segment_sum(rows, descs, stream))
+    assert not torch.equal(captured, eager)
+
+
+@pytest.mark.cuda
+def test_card_accumulation_takes_the_kernel_unless_bfloat16_accumulates(cuda):
+    rows, descs, stream = _segment_case("mix_entities", cuda)
+    launches, calls = segment_kernels.segment_sum.launches, segment_kernels.index_add_sum.calls
+    f32 = updates._sorted_segment_accumulate(rows, descs, stream)
+    assert segment_kernels.segment_sum.launches == launches + 1
+    assert segment_kernels.index_add_sum.calls == calls
+    bf16 = updates._sorted_segment_accumulate(rows, descs, stream, torch.bfloat16)
+    assert segment_kernels.index_add_sum.calls == calls + 1
+    assert f32.dtype == torch.float32 and bf16.dtype == torch.bfloat16
+    torch.cuda.synchronize()
+    assert torch.equal(f32, segment_kernels.segment_sum_plain(rows, descs, stream))
