@@ -34,8 +34,8 @@ build/native), and runs the port's main path:
      tests/test_train_integration.py (cost falls below 0.6x, MAP > 0.8),
      then top-1000 rankings of 100 random queries over the phase-B tables;
   D  the same configuration through on-device sampling, on phase B's
-     corpus: D1 one whole epoch (117 steps, calls of K = 13) of the
-     epoch-exact multistep (under torch.cuda.set_sync_debug_mode("error"),
+     corpus: D1 one whole epoch (117 steps, calls of K = 13) of
+     ``make_device_sampled_multistep`` (under torch.cuda.set_sync_debug_mode("error"),
      so no op of it may wait for the device), after checking the device
      permutation against the epoch's pointers and one batch's windows
      against the corpus; D2 train_model(on_device_sampling=True) for 2
@@ -106,10 +106,11 @@ build/native), and runs the port's main path:
      word reduce in float32 so that only the order of the sums differs from
      one device: H1 a process group of one rank with NCCL on cuda:0 and a
      1x1 mesh: ``train_model(mesh=, on_device_sampling=True)`` for one epoch
-     (117 steps in calls of K = 13) through the sharded multistep, held to
-     the single-device ``train_model`` run of the same seed.  Wherever a
-     sum of the step adds in no fixed order, 117 Adam steps amplify its last
-     bit (``scripts/run_to_run_spread_torch.py``), so each side trains the
+     (117 steps in calls of K = 13) through ``make_device_sampled_multistep``
+     with the mesh, held to the single-device ``train_model`` run of the
+     same seed.  Wherever a sum of the step adds in no fixed order, 117
+     Adam steps amplify its last bit
+     (``scripts/run_to_run_spread_torch.py``), so each side trains the
      epoch twice: with the default kernels (the time, 2 sweeps and 1 cast per
      step, every collective printed with its calls and bytes, the epoch
      cost within H_COST_RTOL) and under
@@ -872,7 +873,7 @@ def check_sampling(dc, doc_perm, corpus, batch, gen):
 
 
 def phase_d1(device, sizes, corpus):
-    """One whole epoch of the epoch-exact multistep at full width."""
+    """One whole epoch of ``make_device_sampled_multistep`` at full width."""
     t0 = time.perf_counter()
     run, dc, doc_perm, steps_epoch = on_device_training(device, sizes, corpus)
     torch.cuda.synchronize()

@@ -60,19 +60,45 @@ class SegmentPlan(NamedTuple):
     offsets: torch.Tensor  # [num_rows + 1] int32, each row's first position
 
 
-def sorted_segment_sum(
-    out: torch.Tensor, rows: torch.Tensor, upd: torch.Tensor
-) -> torch.Tensor:
-    """out[rows[i]] += upd[i] for every i, in place, with ``index_add_``;
-    returns ``out``.  The rows need not be sorted; on a card the adds run
-    in no fixed order."""
-    return out.index_add_(0, rows, upd)
-
-
 def keep_owned(upd: torch.Tensor, owned: torch.Tensor) -> torch.Tensor:
     """``upd`` where ``owned``, zero elsewhere (a selection: a NaN or inf
     computed for a row of another owner is dropped, not multiplied)."""
     return torch.where(owned, upd, torch.zeros((), dtype=upd.dtype, device=upd.device))
+
+
+def scatter_add_slots(out: torch.Tensor, desc, scale=None) -> torch.Tensor:
+    """out[indices[i, w]] += scale * weights[i, w] * grad[i] for every (i, w)
+    of the descriptor ``desc``, in place with ``index_add_``; returns
+    ``out`` (update_repr_kernel, storage.cu:37-49).
+
+    Rows, ``grad`` [B, d] into a table [N, d], are added one window slot at
+    a time, so the [B*W, d] update stream is never materialized; scalars,
+    ``grad`` [B] into a vector [N], are added for every slot in one
+    ``index_add_``.  A term is the product at the width of ``grad`` (the
+    weights cast to it), times ``scale`` where one is given, widened to
+    ``out``'s dtype and kept where ``desc.owned`` (``keep_owned``).  On a
+    card the adds run in no fixed order."""
+    indices, terms, weights = desc.indices, desc.grad, desc.weights
+    if terms.ndim == 1:
+        # Every slot's scalar term together, [B, W, 1], is no larger than
+        # the indices, so one index_add_ takes all the slots.
+        terms, slots = terms[:, None, None].expand(*indices.shape, 1), [slice(None)]
+    else:
+        slots = range(indices.shape[1])
+    if weights is None:
+        # The term is the same in every slot: made once.
+        terms, scale = (terms if scale is None else scale * terms).to(out.dtype), None
+    else:
+        weights = weights.to(terms.dtype)
+    for w in slots:
+        upd = terms if weights is None else terms * weights[:, w, None]
+        if scale is not None:
+            upd = scale * upd
+        upd = upd.to(out.dtype)
+        if desc.owned is not None:
+            upd = keep_owned(upd, desc.owned[:, w, None])
+        out.index_add_(0, indices[:, w].reshape(-1), upd.reshape(-1, *out.shape[1:]))
+    return out
 
 
 def index_add_sum(
@@ -81,29 +107,20 @@ def index_add_sum(
     stream_dtype: Optional[torch.dtype] = None,
     accum_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """S with one ``index_add_`` per window slot over the [B, d] gradient
-    rows, so the [B*W, d] update stream is never materialized.  Under an
-    ``accum_dtype`` the terms are cast to it and summed into an accumulator
-    of that dtype, which is returned as it is (the consumer widens): with
-    bfloat16 the partial sums round, to a relative error of about 2^-9 *
-    sqrt(updates per row)."""
+    """S by :func:`scatter_add_slots` of each descriptor, its gradient rows
+    rounded to ``stream_dtype``.  Under an ``accum_dtype`` the terms are
+    cast to it and summed into an accumulator of that dtype, which is
+    returned as it is (the consumer widens): with bfloat16 the partial sums
+    round, to a relative error of about 2^-9 * sqrt(updates per row)."""
     index_add_sum.calls += 1
-    out_dtype = accum_dtype or descs[0].grad.dtype
     out = torch.zeros(
-        (num_rows, descs[0].grad.shape[1]), dtype=out_dtype,
+        (num_rows, descs[0].grad.shape[1]), dtype=accum_dtype or descs[0].grad.dtype,
         device=descs[0].grad.device,
     )
     for d in descs:
-        grad = d.grad
-        if stream_dtype is not None and stream_dtype != grad.dtype:
-            grad = grad.to(stream_dtype)
-        widened = grad.to(out_dtype)
-        weights = None if d.weights is None else d.weights.to(grad.dtype)
-        for w in range(d.indices.shape[1]):
-            upd = widened if weights is None else (grad * weights[:, w, None]).to(out_dtype)
-            if d.owned is not None:
-                upd = keep_owned(upd, d.owned[:, w, None])
-            sorted_segment_sum(out, d.indices[:, w], upd)
+        if stream_dtype is not None and stream_dtype != d.grad.dtype:
+            d = d._replace(grad=d.grad.to(stream_dtype))
+        scatter_add_slots(out, d)
     return out
 
 

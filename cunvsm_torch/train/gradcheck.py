@@ -34,7 +34,7 @@ import torch
 from cunvsm_torch.config import ModelDesc, TrainConfig
 from cunvsm_torch.models.objectives import AscentGrads
 from cunvsm_torch.models.params import ModelParams
-from cunvsm_torch.optim.updates import _scatter_add
+from cunvsm_torch.ops.segment_kernels import scatter_add_slots
 from cunvsm_torch.parallel.mesh import fetch_params
 from cunvsm_torch.train.step import (
     ObjectiveKind,
@@ -52,7 +52,7 @@ def densify_grads(params: ModelParams, grads: AscentGrads, mesh=None,
     def dense(table, descs, rows):
         out = table.new_zeros((rows, *table.shape[1:]))
         for desc in descs:
-            _scatter_add(out, desc, 1.0)
+            scatter_add_slots(out, desc)
         return out
 
     word = dense(params.word_reprs, grads.word, params.word_reprs.shape[0])

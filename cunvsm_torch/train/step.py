@@ -41,11 +41,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from cunvsm_torch.config import AdamMode, ModelDesc, TrainConfig, UpdateMethod
+from cunvsm_torch.config import ModelDesc, TrainConfig, UpdateMethod
 from cunvsm_torch.models import objectives as obj
 from cunvsm_torch.models.params import ModelParams
 from cunvsm_torch.ops.cast import cast_table
-from cunvsm_torch.optim.updates import Optimizer, OptState
+from cunvsm_torch.optim.updates import Optimizer, OptState, is_full_adam
 from cunvsm_torch.spans import span
 
 
@@ -77,12 +77,7 @@ def _accumulate_only_optimizer(cfg: TrainConfig) -> bool:
     rank-1 entity-gradient layout is exact there; the window-averaged
     statistics of Adagrad and sparse/dense-update Adam need the expanded
     per-update layout."""
-    if cfg.update_method == UpdateMethod.SGD:
-        return True
-    return (
-        cfg.update_method == UpdateMethod.ADAM
-        and cfg.adam.mode == AdamMode.DENSE_UPDATE_DENSE_VARIANCE
-    )
+    return cfg.update_method == UpdateMethod.SGD or is_full_adam(cfg)
 
 
 _AUTO_POOL_CANDIDATES = (2048, 1024, 512, 256, 128, 64)

@@ -10,7 +10,9 @@ Port of the single-device paths of ``cunvsm_tpu/train/trainer.py``:
   stream paces the epoch, main.cu:256-258);
 * **on-device sampling** (``on_device_sampling=True``): the corpus lives on
   the device and every call of ``steps_per_call`` steps samples its own
-  batches from the epoch's shuffled pointers (``data.device_sampler``).
+  batches from the epoch's shuffled pointers
+  (``data.device_sampler.make_device_sampled_multistep``, one runner that
+  reads the layout from the corpus it is given and the mesh).
   An epoch is ``steps_epoch = max(min(batches, pointers // B), 1)`` steps:
   ``steps_epoch // K`` calls of K steps, then one call of the remainder,
   so every full batch trains once per epoch.  On one device a composite
@@ -94,7 +96,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from cunvsm_torch.config import AdamMode, ModelDesc, TrainConfig, UpdateMethod
+from cunvsm_torch.config import ModelDesc, TrainConfig
 from cunvsm_torch.data import device_sampler
 from cunvsm_torch.data.corpus import Corpus
 from cunvsm_torch.data.device_sampler import derived_seed
@@ -103,7 +105,7 @@ from cunvsm_torch.data.sources import Prefetcher, SimilaritySource, repeating, z
 from cunvsm_torch.io import checkpoint as ckpt
 from cunvsm_torch.models.objectives import SimilarityBatch, TextEntityBatch
 from cunvsm_torch.models.params import ModelParams, init_params, reference_init_params
-from cunvsm_torch.optim.updates import Optimizer, OptState
+from cunvsm_torch.optim.updates import Optimizer, OptState, is_full_adam
 from cunvsm_torch.parallel import distributed, mesh as pmesh
 from cunvsm_torch.spans import span
 from cunvsm_torch.train import gradcheck
@@ -186,11 +188,7 @@ def _check_options(cfg, kind, on_device_sampling, steps_per_call, checkpoint_eve
             )
         # The full_adam word accumulation splits the update stream over
         # every mesh axis: fail here, not inside the first step.
-        if (
-            cfg.update_method == UpdateMethod.ADAM
-            and cfg.adam.mode == AdamMode.DENSE_UPDATE_DENSE_VARIANCE
-            and cfg.batch_size % mesh.size
-        ):
+        if is_full_adam(cfg) and cfg.batch_size % mesh.size:
             raise ValueError(
                 f"batch_size {cfg.batch_size} not divisible by the total "
                 f"device count {mesh.size} (mesh "
@@ -384,17 +382,16 @@ def train_model(
             dc = device_sampler.prepare_sharded_device_corpus(
                 corpus, mesh, device, weighting=resolved, feature_weighting=feature_weighting
             )
-            permute, ptrs_per_epoch = device_sampler.make_sharded_epoch_permuter(dc)
         else:
             dc = device_sampler.prepare_device_corpus(
                 corpus, device, weighting=resolved, feature_weighting=feature_weighting
             )
-            if stratify_data_groups:
-                permute, ptrs_per_epoch = device_sampler.make_stratified_epoch_permuter(
-                    dc, stratify_data_groups, cfg.batch_size
-                )
-            else:
-                permute, ptrs_per_epoch = device_sampler.make_epoch_permuter(dc)
+        if stratify_data_groups:
+            permute, ptrs_per_epoch = device_sampler.make_stratified_epoch_permuter(
+                dc, stratify_data_groups, cfg.batch_size
+            )
+        else:
+            permute, ptrs_per_epoch = device_sampler.make_epoch_permuter(dc)
         steps_epoch = max(min(source.batches_per_epoch(), ptrs_per_epoch // cfg.batch_size), 1)
         k = min(k, steps_epoch)
         rem_steps = steps_epoch % k
@@ -412,18 +409,9 @@ def train_model(
                                                                 device)
             pairs.seek(total_batches)
         for n, count in calls:
-            if shard_corpus:
-                run = device_sampler.make_corpus_sharded_multistep(
-                    desc, cfg, dc, n, mesh, generator, num_entities=corpus.num_docs
-                )
-            elif mesh is not None:
-                run = device_sampler.make_device_sampled_sharded_multistep(
-                    desc, cfg, dc, n, mesh, generator, num_entities=corpus.num_docs
-                )
-            else:
-                run = device_sampler.make_device_sampled_multistep(
-                    desc, cfg, dc, n, generator, num_entities=corpus.num_docs, pairs=pairs
-                )
+            run = device_sampler.make_device_sampled_multistep(
+                desc, cfg, dc, n, generator, num_entities=corpus.num_docs, pairs=pairs, mesh=mesh
+            )
             runs += [(run, n)] * count
             step_fns.append(run.step)
     else:

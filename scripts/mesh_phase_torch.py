@@ -20,7 +20,7 @@ a deadline and kills the rest when one fails or is late.  Every rank:
 1. joins the group (a file rendezvous), makes the mesh, initializes the full
    tables from ``--seed`` and keeps its shards;
 2. trains one warm-up and one timed call of K steps through
-   ``make_device_sampled_sharded_multistep`` (canonical configuration:
+   ``make_device_sampled_multistep`` with the mesh (canonical configuration:
    V 65536, N 262144, d 300 -> 256, B 51200, W 10, k 10, pool 2048 / stride
    205, full_adam, bfloat16 streams), then fetches the tables;
 3. counts its kernel launches (2 sweeps, 1 cast and 2 segment sums per
@@ -176,11 +176,8 @@ def two_calls(sizes, corpus, device, seed, mesh=None, reduce_dtype="float32",
     state = Optimizer(cfg).init(params)
     dc = device_sampler.prepare_device_corpus(corpus, device)
     permute, _ = device_sampler.make_epoch_permuter(dc)
-    if mesh is None:
-        run = device_sampler.make_device_sampled_multistep(desc, cfg, dc, k, gen, num_entities=n_ent)
-    else:
-        run = device_sampler.make_device_sampled_sharded_multistep(
-            desc, cfg, dc, k, mesh, gen, num_entities=n_ent)
+    run = device_sampler.make_device_sampled_multistep(desc, cfg, dc, k, gen, num_entities=n_ent,
+                                                       mesh=mesh)
     doc_perm = permute(gen)
     warm = run(params, state, doc_perm, 0)
     sync(device)
@@ -274,7 +271,7 @@ def play_data_groups(sizes, corpus, device, seed, n_data):
     state = Optimizer(cfg).init(params)
     shards = [device_sampler.prepare_sharded_device_corpus(corpus, pmesh.Mesh(n_data, 1, rank=g), device)
               for g in range(n_data)]
-    permuters = [device_sampler.make_sharded_epoch_permuter(sdc) for sdc in shards]
+    permuters = [device_sampler.make_epoch_permuter(sdc) for sdc in shards]
     batch, k = cfg.batch_size, sizes["steps_per_call"]
     source = TextEntitySource(corpus, batch_size=batch, seed=seed)
     steps_epoch = max(min(source.batches_per_epoch(), permuters[0][1] // batch), 1)

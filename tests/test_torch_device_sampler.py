@@ -226,7 +226,11 @@ def test_multistep_matches_jax_steps(case):
     assert int(tstate.word.t) == steps + 1
 
 
-def test_iid_multistep_draws_eligible_documents_and_trains():
+def test_iid_multistep_draws_eligible_documents_and_trains(monkeypatch):
+    """``sample_batch`` alone draws eligible documents i.i.d.; the runner's
+    K = 4 epoch-exact steps train the next slices of the shuffled pointers
+    (eligible labels), move the tables and advance t, and the runner
+    refuses the wrong count of draws and a missing ``doc_perm``."""
     corpus = uneven_corpus(num_docs=60, seed=6)
     _, tdc = both_corpora(corpus)
     gen = torch.Generator().manual_seed(2)
@@ -237,17 +241,31 @@ def test_iid_multistep_draws_eligible_documents_and_trains():
         entity_reprs=np.zeros((corpus.num_docs, desc.entity_repr_size))))
     before = tp.word_reprs.clone()
     state = tupd.Optimizer(cfg).init(tp)
-    run = tds.make_device_sampled_multistep(
-        desc, cfg, tdc, 4, gen, num_entities=corpus.num_docs, epoch_exact=False,
-    )
-    costs = run(tp, state)
+    trained = []
+
+    def recording_step(*args, **kwargs):
+        step = tstep.make_train_step(*args, **kwargs)
+
+        def recorded(params, opt_state, batch, negative_ids=None):
+            trained.append(batch.labels)
+            return step(params, opt_state, batch, negative_ids=negative_ids)
+
+        return recorded
+
+    monkeypatch.setattr(tds, "make_train_step", recording_step)
+    run = tds.make_device_sampled_multistep(desc, cfg, tdc, 4, gen, num_entities=corpus.num_docs)
+    perm = tds.make_epoch_permuter(tdc)[0](gen)
+    assert perm.shape[0] >= 5 * B
+    costs = run(tp, state, perm, B)
     assert costs.shape == (4,) and torch.isfinite(costs).all()
+    for i, got in enumerate(trained):
+        assert torch.equal(got, perm[(1 + i) * B:(2 + i) * B])
+    assert len(trained) == 4 and set(torch.cat(trained).tolist()) <= set(tdc.eligible.tolist())
     assert not torch.equal(before, tp.word_reprs) and int(state.word.t) == 5
     with pytest.raises(ValueError, match="draws"):
-        run(tp, state, draws=[])
-    exact = tds.make_device_sampled_multistep(desc, cfg, tdc, 2, gen)
+        run(tp, state, perm, draws=[])
     with pytest.raises(ValueError, match="shuffled pointers"):
-        exact(tp, state)
+        run(tp, state)
 
 
 @pytest.mark.parametrize("weights", [dict(entity_entity_weight=0.5), dict(term_term_weight=0.5)])

@@ -24,6 +24,7 @@ from cunvsm_tpu.optim import updates as jupd
 from cunvsm_torch.config import UPDATE_METHOD_NAMES
 from cunvsm_torch.models import objectives as tobj
 from cunvsm_torch.models.params import params_from_numpy
+from cunvsm_torch.ops import segment_kernels as sk
 from cunvsm_torch.optim import updates as tupd
 from tests.torch_parity import nonzero_state, optimizer_config, to_np, twin
 
@@ -209,6 +210,9 @@ def test_multiple_descriptors_accumulate_like_jax(name):
 
 
 def test_helpers_match_jax():
+    """The one slot scatter, in its table and its scalar form, with and
+    without weights and a scale, against JAX's ``_scatter_add`` and
+    ``_scatter_add_scalar``; the window-mean gather against JAX's."""
     rng = np.random.RandomState(11)
     idx = rng.randint(0, 5, (7, 3)).astype(np.int32)
     w = rng.rand(7, 3) + 0.5
@@ -216,14 +220,18 @@ def test_helpers_match_jax():
     table = rng.randn(5, 4)
     vec = rng.randn(5)
     vals = rng.randn(7)
-    jd = jobj.SparseGrad(jnp.asarray(grad), jnp.asarray(idx), jnp.asarray(w))
-    td = tobj.SparseGrad(torch.from_numpy(grad), torch.from_numpy(idx).long(), torch.from_numpy(w))
-    t = torch.from_numpy(table.copy())
-    tupd._scatter_add(t, td, 0.3)
-    assert_same(jupd._scatter_add(jnp.asarray(table), jd, 0.3), t)
-    v = torch.from_numpy(vec.copy())
-    tupd._scatter_add_scalar(v, td, torch.from_numpy(vals), 0.7)
-    assert_same(jupd._scatter_add_scalar(jnp.asarray(vec), jd, jnp.asarray(vals), 0.7), v)
+    for weights, scale in ((w, 0.3), (None, 0.7), (None, None)):
+        jd = jobj.SparseGrad(jnp.asarray(grad), jnp.asarray(idx),
+                             None if weights is None else jnp.asarray(weights))
+        td = tobj.SparseGrad(torch.from_numpy(grad), torch.from_numpy(idx).long(),
+                             None if weights is None else torch.from_numpy(weights))
+        jscale = 1.0 if scale is None else scale
+        t = torch.from_numpy(table.copy())
+        assert sk.scatter_add_slots(t, td, scale) is t
+        assert_same(jupd._scatter_add(jnp.asarray(table), jd, jscale), t)
+        v = torch.from_numpy(vec.copy())
+        assert sk.scatter_add_slots(v, td._replace(grad=torch.from_numpy(vals)), scale) is v
+        assert_same(jupd._scatter_add_scalar(jnp.asarray(vec), jd, jnp.asarray(vals), jscale), v)
     for arr in (table, vec):
         assert_same(jupd._window_mean_gather(jnp.asarray(arr), jnp.asarray(idx)),
                     tupd._window_mean_gather(torch.from_numpy(arr), torch.from_numpy(idx).long()))

@@ -96,7 +96,7 @@ def test_sharded_corpus_layout_equals_jax(n_data, weighting):
                                           np.asarray(jsdc.inv_doc_weight)[s])
         assert (sdc.term_weights is None) == (jsdc.term_weights_wide is None)
     _, jptrs = jds.make_sharded_epoch_permuter(jsdc, mesh)
-    assert tds.make_sharded_epoch_permuter(shards[0])[1] == jptrs
+    assert tds.make_epoch_permuter(shards[0])[1] == jptrs
     # The groups partition the eligible documents, in order.
     arrays, spd = tds.sharded_corpus_arrays(corpus, n_data)
     docs = np.concatenate([a.global_doc_id[:a.num_docs] for a in arrays])
@@ -146,7 +146,7 @@ def test_a_group_epoch_draws_every_document_its_share(n_data):
     shared = torch.Generator().manual_seed(123)
     perms = []
     for s, sdc in enumerate(shards):
-        permute, ptrs = tds.make_sharded_epoch_permuter(sdc)
+        permute, ptrs = tds.make_epoch_permuter(sdc)
         perm = permute(shared)
         assert ptrs == n_data * perm.shape[0]
         np.testing.assert_array_equal(np.sort(to_np(perm)), np.sort(to_np(sdc.local_pointers)))
@@ -260,7 +260,7 @@ def play_data_groups(desc, cfg, corpus, n_data, steps_per_call):
     state = Optimizer(cfg).init(params)
     shards = [tds.prepare_sharded_device_corpus(corpus, position(n_data, g), CPU)
               for g in range(n_data)]
-    permuters = [tds.make_sharded_epoch_permuter(sdc) for sdc in shards]
+    permuters = [tds.make_epoch_permuter(sdc) for sdc in shards]
     source = TextEntitySource(corpus, batch_size=cfg.batch_size, seed=cfg.seed)
     steps_epoch = max(min(source.batches_per_epoch(), permuters[0][1] // cfg.batch_size), 1)
     k = min(steps_per_call, steps_epoch)
@@ -315,20 +315,30 @@ def test_sharded_corpus_training_equals_the_played_groups(shard_run, name):
 
 
 def test_sharded_corpus_refusals():
+    """The one runner refuses, layout by layout: a shard prepared for
+    another mesh position or without a mesh, a batch that does not split
+    over every device of the mesh (corpus sharded or replicated), and on
+    one device a call without the shuffled pointers."""
     corpus = trainer_corpus()
     sdc = tds.prepare_sharded_device_corpus(corpus, position(2, 1), CPU)
+
+    def runner(dc, mesh):
+        return tds.make_device_sampled_multistep(
+            TRAIN_DESC, train_cfg(1), dc, 1, torch.Generator(), corpus.num_docs, mesh=mesh)
+
     with pytest.raises(ValueError, match="not prepared for this mesh position"):
-        tds.make_corpus_sharded_multistep(
-            TRAIN_DESC, train_cfg(1), sdc, 1, position(2, 0), torch.Generator(), corpus.num_docs)
+        runner(sdc, position(2, 0))
+    with pytest.raises(ValueError, match="a sharded corpus needs the mesh"):
+        runner(sdc, None)
     with pytest.raises(ValueError, match=r"batch_size 8 not divisible by the total device "
                                          r"count 3 \(mesh \{'data': 3, 'model': 1\}\)"):
-        tds.make_corpus_sharded_multistep(
-            TRAIN_DESC, train_cfg(1), sdc, 1, position(3, 0), torch.Generator(), corpus.num_docs)
+        runner(sdc, position(3, 0))
     dc = tds.prepare_device_corpus(corpus, CPU)
     with pytest.raises(ValueError, match="the sharded word accumulation splits the update "
                                          "stream over every mesh axis"):
-        tds.make_device_sampled_sharded_multistep(
-            TRAIN_DESC, train_cfg(1), dc, 1, position(3, 0), torch.Generator(), corpus.num_docs)
+        runner(dc, position(3, 0))
+    with pytest.raises(ValueError, match="shuffled pointers"):
+        runner(dc, None)(None, None)
     with pytest.raises(ValueError, match="stratify_data_groups simulates"):
         ttrainer.train_model(TRAIN_DESC, train_cfg(1), corpus, CPU, on_device_sampling=True,
                              shard_corpus=True, stratify_data_groups=2, mesh=pmesh.Mesh(1, 1))
