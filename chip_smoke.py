@@ -18,7 +18,10 @@ build/native), and runs the port's main path:
      of the word table, [65536, 300] from 51,200 x 10 Zipf 1.07 ids, and of
      the entity table, [262144, 256] from 51,200 labels and 2,048 pool
      rows, under bfloat16 streams, bitwise to the plain version on the same
-     plan and within n * 2^-24 * mass of a float64 sum), with the time of
+     plan and within n * 2^-24 * mass of a float64 sum; window mean: the
+     [51200, 300] mean of 51,200 x 10 Zipf 1.07 ids over the [65536, 300]
+     word table in bfloat16 with bfloat16 sums and in float32, bitwise to
+     the plain version's roundings in a fixed order), with the time of
      each (CUDA events: the median of 40 single calls, and 20 calls back to
      back between one pair of events, divided by 20);
   B0 three steps of a small configuration on the card (float32, kernels)
@@ -28,8 +31,9 @@ build/native), and runs the port's main path:
      bfloat16 streams, pool auto = 2048 / stride 205) for 23 steps from a
      Zipf corpus of 262144 documents x 32 tokens through TextEntitySource;
      every cost finite, the sweep launched twice, the cast once and the
-     segment sum twice per step, ``index_add_`` never (``read_launches``:
-     every phase below holds the four counts to its rule);
+     segment sum twice and the window mean once per step, ``index_add_``
+     never (``read_launches``: every phase below holds the five counts to
+     its rule);
   C  train_model on the three-topic corpus of
      tests/test_train_integration.py (cost falls below 0.6x, MAP > 0.8),
      then top-1000 rankings of 100 random queries over the phase-B tables;
@@ -58,7 +62,7 @@ build/native), and runs the port's main path:
      its negative layout, and asserts its launches per step: the sweep and
      the segment sum 2 under full_adam and 0 otherwise, the cast 1 where
      the factored, pooled or shared path runs under bfloat16 streams and 0
-     on the expanded per-instance path;
+     on the expanded per-instance path, the window mean 1;
   F  the command-line entry points, in process: F1 cunvsm-torch-train
      (``cunvsm_torch.cli.train.main``) on phase B's corpus saved as a
      packed .npz, with the canonical flags, on-device sampling in calls of
@@ -236,7 +240,7 @@ from cunvsm_torch.io import checkpoint
 from cunvsm_torch.io.trec import read_run
 from cunvsm_torch.models.objectives import SimilarityBatch, SparseGrad, TextEntityBatch
 from cunvsm_torch.models.params import init_params, params_from_numpy, params_to_numpy
-from cunvsm_torch.ops import adam_sweep, cast, cuda_build, segment_kernels
+from cunvsm_torch.ops import adam_sweep, cast, cuda_build, segment_kernels, window_mean
 from cunvsm_torch.optim.updates import Optimizer, _sorted_segment_accumulate
 from cunvsm_torch.parallel import distributed
 from cunvsm_torch.parallel import mesh as pmesh
@@ -550,6 +554,79 @@ def phase_segment_sum(device, sizes, gen):
     return dict(max_abs_err=err, **totals, **bound(num_bytes, ops))
 
 
+def window_mean_operands(device, sizes, gen):
+    """The window means of both cells' steps: [B, W] ids drawn from Zipf
+    1.07 over the vocabulary, uniform weights, and the word table under
+    bfloat16 streams with bfloat16 window sums (nvsm.train) and in float32
+    (mixnmatch.train).  Returns (name, table, ids, window_sum_dtype)."""
+    b, w = sizes["batch"], sizes["window"]
+    zipf = torch.arange(1, sizes["num_words"] + 1, dtype=torch.float64, device=device)
+    zipf = zipf.pow(-1.07).to(torch.float32)
+    ids = torch.multinomial(zipf, b * w, replacement=True, generator=gen).reshape(b, w)
+    table = torch.randn((sizes["num_words"], sizes["word_dim"]), device=device, generator=gen)
+    table = table * 0.1
+    return [("nvsm.train", table.to(torch.bfloat16), ids, torch.bfloat16),
+            ("mixnmatch.train", table, ids, None)]
+
+
+def window_mean_fixed_order(table, ids, sums):
+    """The plain version's roundings with the window's terms added in the
+    order w = 0, 1, ..., W - 1 from the first (uniform weights)."""
+    rows = table[ids]
+    acc = rows[:, 0].float()
+    for w in range(1, ids.shape[1]):
+        acc = acc + rows[:, w].float()
+    return (acc.to(sums or torch.float32) / ids.shape[1]).float()
+
+
+def phase_window_mean(device, sizes, gen):
+    """The window mean at both cells' shapes: bitwise the fixed-order
+    expression, near the plain version, then timed beside the plain
+    version and beside ``index_select`` + ``sum``, the library path."""
+    totals, err, num_bytes, num_ops = {}, 0.0, 0, 0
+    for name, table, ids, sums in window_mean_operands(device, sizes, gen):
+        before = window_mean.window_mean.launches
+        got = window_mean.window_mean(table, ids, None, sums)
+        want = window_mean_fixed_order(table, ids, sums)
+        plain = window_mean.window_mean_plain(table, ids, None, sums)
+        torch.cuda.synchronize()
+        if window_mean.window_mean.launches != before + 1:
+            raise AssertionError(f"window_mean did not launch its kernel at {name}'s shape")
+        if not torch.equal(got, want):
+            raise AssertionError(f"window mean at {name}'s shape differs from the fixed-order "
+                                 f"expression: max abs {float((got - want).abs().max()):.3e}")
+        e = float((got - plain).abs().max())
+        err = max(err, e)
+        del want, plain
+        flat = ids.reshape(-1)
+        b, w, d = ids.shape[0], ids.shape[1], table.shape[1]
+
+        def library():
+            return table.index_select(0, flat).view(b, w, d).sum(dim=1, dtype=torch.float32)
+
+        t = paired_ms(lambda: window_mean.window_mean(table, ids, None, sums),
+                      lambda: window_mean.window_mean_plain(table, ids, None, sums))
+        t.update(library_ms=statistics.median(back_to_back_ms(library)),
+                 library_ms_per_call=statistics.median(cuda_ms(library, reps=40)))
+        # The ids (int64), each distinct row read once, the float32 mean
+        # written once; the whole table read once gives the bound of
+        # window_mean.cu's note.
+        rows = int(torch.unique(ids).numel())
+        moved = ids.numel() * 8 + rows * d * table.element_size() + b * d * 4
+        whole = ids.numel() * 8 + table.numel() * table.element_size() + b * d * 4
+        ops = b * w * d
+        log(f"A window mean {name} [{b}, {w}] over [{table.shape[0]}, {d}] {table.dtype} "
+            f"(sums {sums or torch.float32}): bitwise equal to the fixed-order expression; "
+            f"max abs vs the plain version {e:.3e}; {format_ms(t)}; index_select + sum "
+            f"{t['library_ms']:.4f}, per call {t['library_ms_per_call']:.4f}; {rows} distinct "
+            f"rows, bound {bound(moved, ops)['bound_ms']:.4f} ({moved / 1e6:.1f} MB), with the "
+            f"whole table {bound(whole, ops)['bound_ms']:.4f} ({whole / 1e6:.1f} MB)")
+        totals = {k: totals.get(k, 0.0) + t[k] for k in t}
+        num_bytes, num_ops = num_bytes + moved, num_ops + ops
+        del got, table
+    return dict(max_abs_err=err, **totals, **bound(num_bytes, num_ops))
+
+
 def phase_a(device, sizes):
     """Each kernel against its plain version at the main path's shapes."""
     out = {}
@@ -602,6 +679,12 @@ def phase_a(device, sizes):
     # kernels' passes alone; library_ms: index_add_sum, one index_add_ per
     # window slot into a zeroed table.
     out["segsum"] = phase_segment_sum(device, sizes, gen)
+
+    t0 = time.perf_counter()
+    cuda_build.build_library("window_mean", ("window_mean.cu",))
+    log(f"A nvcc build of the window mean: {time.perf_counter() - t0:.1f}s")
+    # ms: both cells' shapes; library_ms: index_select + sum.
+    out["wmean"] = phase_window_mean(device, sizes, gen)
     return out
 
 
@@ -782,11 +865,13 @@ def phase_c(device, params_b, corpus_b):
 
 
 # The counts that ``launch_counts`` reads: the sweep's and the cast's
-# launches, the segment sum's launches and full_adam's accumulations that
-# fell back to ``index_add_`` (``segment_kernels.index_add_sum``).
-LAUNCH_KEYS = ("sweep", "cast", "segsum", "index_add")
-# A canonical step: 2 sweeps, 1 cast, 2 segment sums, no fallback.
-CANONICAL_LAUNCHES = {"sweep": 2, "cast": 1, "segsum": 2, "index_add": 0}
+# launches, the segment sum's launches, full_adam's accumulations that
+# fell back to ``index_add_`` (``segment_kernels.index_add_sum``) and the
+# window mean's launches.
+LAUNCH_KEYS = ("sweep", "cast", "segsum", "index_add", "wmean")
+# A canonical step: 2 sweeps, 1 cast, 2 segment sums, no fallback, 1
+# window mean.
+CANONICAL_LAUNCHES = {"sweep": 2, "cast": 1, "segsum": 2, "index_add": 0, "wmean": 1}
 
 
 def no_launches() -> dict:
@@ -798,13 +883,15 @@ def reset_launches():
     cast.cast_table.launches = 0
     segment_kernels.segment_sum.launches = 0
     segment_kernels.index_add_sum.calls = 0
+    window_mean.window_mean.launches = 0
 
 
 def launch_counts() -> dict:
     return {"sweep": adam_sweep.fused_adam_dense_sweep.launches,
             "cast": cast.cast_table.launches,
             "segsum": segment_kernels.segment_sum.launches,
-            "index_add": segment_kernels.index_add_sum.calls}
+            "index_add": segment_kernels.index_add_sum.calls,
+            "wmean": window_mean.window_mean.launches}
 
 
 def read_launches(steps, phase, per_step=None):
@@ -997,7 +1084,8 @@ def expected_launches(cfg, desc, num_entities) -> dict:
     ``index_add_`` with a bfloat16 one; the cast once where the pooled,
     shared or factored path runs under bfloat16 streams, none on the
     expanded per-instance path (the window-averaged optimizers, the entity
-    L2 normalizer)."""
+    L2 normalizer); the window mean once, in every text-entity step (a
+    composite's too)."""
     full_adam = (cfg.update_method == UpdateMethod.ADAM
                  and cfg.adam.mode == AdamMode.DENSE_UPDATE_DENSE_VARIANCE)
     pool, _ = resolve_negative_sampling(cfg, desc, cfg.batch_size, num_entities)
@@ -1008,7 +1096,7 @@ def expected_launches(cfg, desc, num_entities) -> dict:
     narrow = cfg.resolved_accum_dtype() == "bfloat16"
     return {"sweep": 2 if full_adam else 0, "cast": 1 if casts else 0,
             "segsum": 2 if full_adam and not narrow else 0,
-            "index_add": 2 if full_adam and narrow else 0}
+            "index_add": 2 if full_adam and narrow else 0, "wmean": 1}
 
 
 def phase_e0(device):
@@ -1248,13 +1336,14 @@ def phase_f1(device, sizes, corpus, seed, tmp):
     costs = [initial[0]] + [c for c, _, _ in epochs]
     if not (len(epochs) == 2 and all(np.isfinite(costs)) and costs[-1] < costs[0]):
         raise AssertionError(f"F1: initial and epoch costs {costs}")
-    # The initial-cost pass is forward only: no sweep, no accumulation.  The
-    # trained steps launch the sweep twice, the cast once and the segment
-    # sum twice each.
+    # The initial-cost pass is forward only: no sweep, no accumulation, one
+    # window mean a batch.  The trained steps launch the sweep twice, the
+    # cast once, the segment sum twice and the window mean once each.
     at_initial = logs.at_initial_cost
     trained = {key: launches[key] - at_initial[key] for key in launches}
     steps = sum(n for _, n, _ in epochs)
     if (any(at_initial[key] for key in ("sweep", "segsum", "index_add"))
+            or at_initial["wmean"] != initial[1]
             or trained != {key: n * steps for key, n in CANONICAL_LAUNCHES.items()}):
         raise AssertionError(f"F1: launches {at_initial} in the initial-cost pass and "
                              f"{trained} over {steps} trained steps")
@@ -1415,8 +1504,9 @@ def phase_f3(device, tmp):
     out = []
     # The CPU's tables take the plain sweep and index_add_.
     for name, dev, per_step in (
-            ("card", device, {"sweep": 2, "cast": 0, "segsum": 2, "index_add": 0}),
-            ("cpu", torch.device("cpu"), {"sweep": 0, "cast": 0, "segsum": 0, "index_add": 2})):
+            ("card", device, {"sweep": 2, "cast": 0, "segsum": 2, "index_add": 0, "wmean": 1}),
+            ("cpu", torch.device("cpu"),
+             {"sweep": 0, "cast": 0, "segsum": 0, "index_add": 2, "wmean": 0})):
         prefix = os.path.join(tmp, f"reference_{name}")
         reset_launches()
         logs, wall_s = run_command(train_cli.main, [*flags, "--output", prefix, "--device",
@@ -2156,7 +2246,8 @@ def phase_i4(device, sizes, tmp, seed):
         "--eval_every", "1", "--batch_size", str(sizes["batch"]),
         "--word_repr_size", str(sizes["word_dim"]), "--entity_repr_size", str(sizes["entity_dim"]),
         "--planted_split", paths["planted_split"], "--device", str(device),
-    ], "I4 Mix 'n Match", {"sweep": 2, "cast": 0, "segsum": 2, "index_add": 0})
+    ], "I4 Mix 'n Match", {"sweep": 2, "cast": 0, "segsum": 2, "index_add": 0,
+                                 "wmean": 1})
     stats = dict(results=results, epochs=epochs, wall_s=wall_s,
                  ms_per_step=[1e3 * sec / n for _, _, n, sec in epochs])
     log("I4 " + json.dumps(stats))
@@ -2299,7 +2390,8 @@ def phase_j1(device, sizes, tmp, seed):
         "--batch_size", str(sizes["reuters_batch"]),
         "--word_repr_size", str(sizes["reuters_word_dim"]),
         "--entity_repr_size", str(sizes["reuters_entity_dim"]), "--device", str(device)],
-        "J1 Reuters", {"sweep": 2, "cast": 0, "segsum": 2, "index_add": 0})
+        "J1 Reuters", {"sweep": 2, "cast": 0, "segsum": 2, "index_add": 0,
+                                 "wmean": 1})
     with open(os.path.join(wd, "metrics.json")) as f:
         metrics = json.load(f)
     curve = metrics["class_silhouette_cosine_by_epoch"]
@@ -2494,6 +2586,8 @@ def main():
                  "cunvsm_tpu/ops/cast.py:31"),
         "segsum": ("segment_sum", "cuda", "cunvsm_torch/csrc/segment_sum.cu",
                    "cunvsm_tpu/optim/updates.py:207 (XLA's sorted segment sum)"),
+        "wmean": ("window_mean", "cuda", "cunvsm_torch/csrc/window_mean.cu",
+                  "cunvsm_tpu/models/objectives.py:gather_phrase_reprs (XLA's gather-mean)"),
     }
     kernels["segsum"].update(
         index_add_fallbacks=launches["index_add"],

@@ -63,6 +63,7 @@ from cunvsm_torch.ops.activations import (
 )
 from cunvsm_torch.ops.batchnorm import batch_norm_train
 from cunvsm_torch.ops.cast import cast_table
+from cunvsm_torch.ops.window_mean import window_mean
 from cunvsm_torch.spans import span
 
 
@@ -191,16 +192,10 @@ def gather_phrase_reprs(
     skips the multiply.  A bfloat16 table is gathered at half width and the
     window sum widens to float32, unless ``window_sum_dtype`` is the table's
     dtype: then the sum and the division run at stream width and widen
-    after.
+    after.  On a card the window mean kernel computes it
+    (``ops/window_mean.py``), on the CPU its plain version.
     """
-    batch, window = features.shape
-    flat = word_reprs.index_select(0, features.reshape(-1))  # [B*W, d]
-    acc_dtype = torch.float32 if flat.dtype == torch.bfloat16 else flat.dtype
-    if feature_weights is not None:
-        flat = flat * feature_weights.reshape(-1).to(flat.dtype)[:, None]
-    sum_dtype = flat.dtype if window_sum_dtype == flat.dtype else acc_dtype
-    summed = flat.view(batch, window, -1).sum(dim=1, dtype=sum_dtype)
-    return (summed / window).to(acc_dtype)
+    return window_mean(word_reprs, features, feature_weights, window_sum_dtype)
 
 
 def apply_transform(

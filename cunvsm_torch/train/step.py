@@ -45,6 +45,7 @@ from cunvsm_torch.config import ModelDesc, TrainConfig, UpdateMethod
 from cunvsm_torch.models import objectives as obj
 from cunvsm_torch.models.params import ModelParams
 from cunvsm_torch.ops.cast import cast_table
+from cunvsm_torch.ops.window_mean import window_mean
 from cunvsm_torch.optim.updates import Optimizer, OptState, is_full_adam
 from cunvsm_torch.spans import span
 
@@ -373,6 +374,10 @@ def graph_signature(kind: ObjectiveKind, mesh, device, params: ModelParams, batc
             shape(negative_ids), tuple((t.data_ptr(), shape(t)) for t in params))
 
 
+# The kernels of the model step that count their launches.
+_COUNTED = (cast_table, window_mean)
+
+
 class _CapturedStep:
     """One CUDA graph of ``cost_and_grads(batch, negative_ids)``: static
     copies of the inputs that the step reads (both batches of a composite),
@@ -392,14 +397,15 @@ class _CapturedStep:
         self.graph = torch.cuda.CUDAGraph()
         if generator is not None:
             self.graph.register_generator_state(generator)
-        casts = cast_table.launches
+        before = [kernel.launches for kernel in _COUNTED]
         # Thread-local: the host-fed prefetch thread copies batches meanwhile.
         with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.outputs = cost_and_grads(self.batch, self.negative_ids)
         # The launch counters count the kernels that ran: each replay's, not
         # the capture's.
-        self._casts = cast_table.launches - casts
-        cast_table.launches = casts
+        self._launches = [kernel.launches - n for kernel, n in zip(_COUNTED, before)]
+        for kernel, n in zip(_COUNTED, before):
+            kernel.launches = n
 
     def _inputs(self, batch, negative_ids):
         read = [t for b in batch_parts(batch) for name, t in zip(b._fields, b)
@@ -411,7 +417,8 @@ class _CapturedStep:
                              self._inputs(batch, negative_ids)):
             static.copy_(t)
         self.graph.replay()
-        cast_table.launches += self._casts
+        for kernel, n in zip(_COUNTED, self._launches):
+            kernel.launches += n
         return self.outputs
 
 

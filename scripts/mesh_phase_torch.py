@@ -81,7 +81,7 @@ from cunvsm_torch.data.synth import zipf_corpus  # noqa: E402
 from cunvsm_torch.io import checkpoint  # noqa: E402
 from cunvsm_torch.models.objectives import SparseGrad, TextEntityBatch  # noqa: E402
 from cunvsm_torch.models.params import ModelParams, init_params  # noqa: E402
-from cunvsm_torch.ops import adam_sweep, cast, segment_kernels  # noqa: E402
+from cunvsm_torch.ops import adam_sweep, cast, segment_kernels, window_mean  # noqa: E402
 from cunvsm_torch.optim.updates import Optimizer  # noqa: E402
 from cunvsm_torch.parallel import distributed, mesh as pmesh  # noqa: E402
 from cunvsm_torch.query.engine import QueryEngine  # noqa: E402
@@ -141,12 +141,14 @@ def launch_counts() -> dict:
     return {"sweep": adam_sweep.fused_adam_dense_sweep.launches,
             "cast": cast.cast_table.launches,
             "segsum": segment_kernels.segment_sum.launches,
-            "index_add": segment_kernels.index_add_sum.calls}
+            "index_add": segment_kernels.index_add_sum.calls,
+            "wmean": window_mean.window_mean.launches}
 
 
 def per_step_launches(steps: int) -> dict:
     """The launches of ``steps`` canonical steps on a card."""
-    return {"sweep": 2 * steps, "cast": steps, "segsum": 2 * steps, "index_add": 0}
+    return {"sweep": 2 * steps, "cast": steps, "segsum": 2 * steps, "index_add": 0,
+            "wmean": steps}
 
 
 def reset_launches() -> None:
@@ -154,6 +156,7 @@ def reset_launches() -> None:
     cast.cast_table.launches = 0
     segment_kernels.segment_sum.launches = 0
     segment_kernels.index_add_sum.calls = 0
+    window_mean.window_mean.launches = 0
 
 
 def sync(device) -> None:

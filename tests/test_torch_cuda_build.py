@@ -15,7 +15,7 @@ from types import SimpleNamespace
 
 import pytest
 
-from cunvsm_torch.ops import cast, cuda_build
+from cunvsm_torch.ops import cast, cuda_build, window_mean
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = ("cast_bf16.cu",)
@@ -158,3 +158,19 @@ def test_source_declares_the_bound_entry_point():
     decl = " ".join(src[src.index('extern "C"'):src.index("{", src.index('extern "C"'))].split())
     assert decl == ('extern "C" int cunvsm_cast_f32_bf16(const float* x, __nv_bfloat16* y, '
                     "long long n, cudaStream_t stream)")
+
+
+def test_window_mean_binding_declares_the_c_signature():
+    """The window mean's pointers and stream as c_void_p, its sizes as long
+    long or int, the reciprocal as a float."""
+    lib = SimpleNamespace(cunvsm_window_mean=SimpleNamespace())
+    fn = window_mean.bind(lib)
+    ptr, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    assert fn is lib.cunvsm_window_mean
+    assert fn.argtypes == [ptr, i, ptr, ptr, ptr, ll, i, ll, i, ctypes.c_float, ptr]
+    assert fn.restype is ctypes.c_int
+    src = open(os.path.join(cuda_build.CSRC, "window_mean.cu")).read()
+    decl = " ".join(src[src.index('extern "C"'):src.index("{", src.index('extern "C"'))].split())
+    assert decl == ('extern "C" int cunvsm_window_mean(const void* table, int bf16_table, '
+                    "const long long* idx, const void* fw, float* out, long long batch, "
+                    "int window, long long dim, int bf16_sum, float inv, cudaStream_t stream)")

@@ -15,7 +15,7 @@ import torch
 
 from cunvsm_tpu.ops.adam_sweep import _sweep_pallas
 from cunvsm_tpu.ops.cast import _cast_pallas
-from cunvsm_torch.ops import adam_sweep, cast
+from cunvsm_torch.ops import adam_sweep, cast, window_mean
 
 torch.set_num_threads(1)
 
@@ -125,7 +125,7 @@ def test_cast_of_same_dtype_is_identity():
     assert cast.cast_table(x, torch.float32) is x
 
 
-@pytest.mark.parametrize("wrapper", ["sweep", "cast"])
+@pytest.mark.parametrize("wrapper", ["sweep", "cast", "window_mean"])
 def test_non_cpu_tensor_never_takes_the_plain_version(wrapper):
     """A tensor that is not on the CPU goes to the kernel launcher, which
     raises here (no card, no triton); it is never routed to the plain
@@ -134,8 +134,11 @@ def test_non_cpu_tensor_never_takes_the_plain_version(wrapper):
     if wrapper == "sweep":
         fn, call = adam_sweep.fused_adam_dense_sweep, lambda: adam_sweep.fused_adam_dense_sweep(
             x, x, x, x, torch.empty((), device="meta"), **HYPER)
-    else:
+    elif wrapper == "cast":
         fn, call = cast.cast_table, lambda: cast.cast_table(x, torch.bfloat16)
+    else:
+        ids = torch.zeros((2, 3), dtype=torch.int64, device="meta")
+        fn, call = window_mean.window_mean, lambda: window_mean.window_mean(x, ids, None)
     before = fn.launches
     with pytest.raises(ValueError, match="no kernel for meta"):
         call()
@@ -146,6 +149,8 @@ def test_non_cpu_tensor_never_takes_the_plain_version(wrapper):
     (adam_sweep, ("fused_adam_dense_sweep", "_launch_sweep", "_sweep_kernel"),
      "if table.is_cuda:"),
     (cast, ("cast_table", "_launch_cast", "_cast_kernel", "bind"), "if x.is_cuda:"),
+    (window_mean, ("window_mean", "_launch", "_window_mean_kernel", "bind"),
+     "if word_reprs.is_cuda:"),
 ])
 def test_dispatch_has_no_fallback(module, names, branch):
     """The dispatch branches on the tensor's device only: no try/except
@@ -157,3 +162,19 @@ def test_dispatch_has_no_fallback(module, names, branch):
     assert branch in inspect.getsource(getattr(module, names[0]))
 
 
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_window_mean_of_a_cpu_table_is_the_plain_version(dtype, weighted):
+    """A CPU table takes the plain version, bitwise, and launches nothing."""
+    g = torch.Generator().manual_seed(3)
+    table = torch.randn((40, 12), generator=g).to(dtype)
+    ids = torch.randint(0, 40, (9, 5), generator=g)
+    fw = torch.rand((9, 5), generator=g) if weighted else None
+    before = window_mean.window_mean.launches
+    for sums in (None, dtype):
+        got = window_mean.window_mean(table, ids, fw, sums)
+        assert torch.equal(got, window_mean.window_mean_plain(table, ids, fw, sums))
+        assert got.dtype == (torch.float64 if dtype == torch.float64 else torch.float32)
+    assert window_mean.window_mean.launches == before

@@ -109,6 +109,26 @@ def test_gather_phrase_reprs_matches_jax(weighted, stream):
     np.testing.assert_allclose(to_np(j), to_np(t), rtol=1e-6, atol=1e-7)
 
 
+@pytest.mark.parametrize("window", [1, 10])
+def test_gather_phrase_reprs_bfloat16_window_sums_match_the_benchmark_formula(window):
+    """A bfloat16 table with bfloat16 window sums: the benchmark reference's
+    phrase, rounded(rounded(sum) / W) with the sum in float32
+    (``nvsm_bench/reference/train.py:loss``), within one bfloat16 ulp; both
+    sum in float32, perhaps in other orders."""
+    rng = np.random.RandomState(12)
+    table = torch.from_numpy(rng.standard_normal((64, 300)).astype(np.float32))
+    table = table.to(torch.bfloat16)
+    features = torch.from_numpy(rng.randint(0, 64, (37, window)))
+    got = tobj.gather_phrase_reprs(table, features, None, torch.bfloat16)
+    summed = table.float()[features].sum(dim=1)
+    want = (summed.to(torch.bfloat16).float() / window).to(torch.bfloat16).float()
+    assert got.dtype == torch.float32
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=2.0 ** -126))) - 7)
+    assert torch.all((got - want).abs() <= ulp)
+    # Over a window of 10 the roundings are there to see; over 1 there are none.
+    assert torch.equal(want, summed / window) == (window == 1)
+
+
 @pytest.mark.parametrize("bias_negative_samples", [False, True])
 @pytest.mark.parametrize("k", [1, 3, 10])
 def test_nce_instance_weights_match_jax(bias_negative_samples, k):

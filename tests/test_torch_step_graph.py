@@ -23,6 +23,7 @@ holds graphed training bitwise to eager training there).  Here:
 """
 
 import collections
+import contextlib
 import logging
 
 import pytest
@@ -300,3 +301,34 @@ def test_capture_and_replay_spans_sit_in_the_step_span(fake_graph):
     for e in events:
         if e.name in ("cunvsm.step.capture", "cunvsm.step.replay"):
             assert program_parent(e) == "cunvsm.step.cost_and_grads"
+
+
+class _Graph:
+    """A CUDA graph's host side: registers generators and replays nothing."""
+
+    def register_generator_state(self, generator):
+        pass
+
+    def replay(self):
+        pass
+
+
+def test_the_launch_counters_count_each_replay_and_not_the_capture(monkeypatch):
+    """``_CapturedStep`` around a step that launches the cast once and the
+    window mean once: the capture leaves both counters where they were,
+    and each replay adds one to each, as the kernels that run."""
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
+    monkeypatch.setattr(torch.cuda, "graph", lambda graph, **kw: contextlib.nullcontext())
+
+    def cost_and_grads(b, negative_ids):
+        for kernel in tstep._COUNTED:
+            kernel.launches += 1
+        return b.features.sum()
+
+    counters = [kernel.launches for kernel in tstep._COUNTED]
+    assert [k.__name__ for k in tstep._COUNTED] == ["cast_table", "window_mean"]
+    captured = tstep._CapturedStep(cost_and_grads, None, batch(), None, True)
+    assert [kernel.launches for kernel in tstep._COUNTED] == counters
+    for n in (1, 2, 3):
+        captured.replay(batch(seed=n), None)
+        assert [kernel.launches for kernel in tstep._COUNTED] == [c + n for c in counters]

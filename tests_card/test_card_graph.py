@@ -31,7 +31,7 @@ from cunvsm_torch.data.sources import SimilaritySource
 from cunvsm_torch.data.synth import corpus_from_tokens
 from cunvsm_torch.io import checkpoint as tckpt
 from cunvsm_torch.models.params import init_params
-from cunvsm_torch.ops import cast
+from cunvsm_torch.ops import cast, window_mean
 from cunvsm_torch.optim.updates import Optimizer
 from cunvsm_torch.parallel import distributed, mesh as pmesh
 from cunvsm_torch.train import step as tstep
@@ -100,9 +100,10 @@ def recorded(monkeypatch, costs, closures):
 def train(monkeypatch, caplog, cfg, graphed, **kw):
     """(TrainResult, per-step costs, step closures, replays by epoch's log);
     the cast's launch counter counts one launch a step under bfloat16
-    streams, none under float32, whether the step is replayed or not."""
+    streams, none under float32, and the window mean's one a step, whether
+    the step is replayed or not."""
     costs, closures = [], []
-    casts = cast.cast_table.launches
+    casts, means = cast.cast_table.launches, window_mean.window_mean.launches
     with monkeypatch.context() as m:
         recorded(m, costs, closures)
         if not graphed:
@@ -113,6 +114,7 @@ def train(monkeypatch, caplog, cfg, graphed, **kw):
         torch.cuda.synchronize()
     casts_a_step = 1 if cfg.stream_dtype == "bfloat16" else 0
     assert cast.cast_table.launches - casts == casts_a_step * result.steps
+    assert window_mean.window_mean.launches - means == result.steps
     replays = [r.args[5] for r in caplog.records if r.msg.startswith("Epoch %d%s: cost")]
     return result, torch.stack(costs).cpu(), closures, replays
 
@@ -233,14 +235,16 @@ def test_a_profiler_after_the_capture_records_the_replayed_kernels(cuda, monkeyp
             perm = tds.make_epoch_permuter(dc)[0](gen)
             run(params, state, perm, 0)
             torch.cuda.synchronize()
-            before = cast.cast_table.launches
+            before = cast.cast_table.launches, window_mean.window_mean.launches
             counts[graphed], spans[graphed] = profiled_counts(run, params, state, perm, K * B)
-            assert cast.cast_table.launches == before + K
+            assert (cast.cast_table.launches, window_mean.window_mean.launches) == (
+                before[0] + K, before[1] + K)
             assert run.step.graph.replays == (2 * K - 1 if graphed else 0)
     missing = {name: n - counts[True][name] for name, n in counts[False].items()
                if counts[True][name] < n}
     assert not missing
     assert sum(n for name, n in counts[True].items() if "cast_kernel" in name) == K
+    assert sum(n for name, n in counts[True].items() if "window_mean_kernel" in name) == K
     # Each replayed step has its span; the loss and backward ran in the capture.
     assert spans[True] == {"cunvsm.step.cost_and_grads": K, "cunvsm.step.replay": K}
     assert spans[False]["cunvsm.step.loss"] == K and "cunvsm.step.replay" not in spans[False]

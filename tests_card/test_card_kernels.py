@@ -5,7 +5,7 @@ import pytest
 import torch
 
 from cunvsm_torch.models.objectives import SparseGrad
-from cunvsm_torch.ops import adam_sweep, cast, segment_kernels
+from cunvsm_torch.ops import adam_sweep, cast, segment_kernels, window_mean
 from cunvsm_torch.optim import updates
 
 HYPER = dict(lam=0.01 / 51200, beta1=0.9, beta2=0.999, eps=1e-6)
@@ -212,3 +212,150 @@ def test_card_accumulation_takes_the_kernel_unless_bfloat16_accumulates(cuda):
     assert f32.dtype == torch.float32 and bf16.dtype == torch.bfloat16
     torch.cuda.synchronize()
     assert torch.equal(f32, segment_kernels.segment_sum_plain(rows, descs, stream))
+
+
+# The window mean: (table dtype, window_sum_dtype) routes, every width and
+# window below, weighted and uniform, 1,001 rows (not a multiple of the 8
+# rows of a block).
+WINDOW_MEAN_ROUTES = {
+    "bf16_bf16_sums": (torch.bfloat16, torch.bfloat16),
+    "bf16_f32_sums": (torch.bfloat16, None),
+    "f32": (torch.float32, None),
+}
+
+
+def _window_mean_operands(cuda, route, dim, window, weighted, rows=1001, vocab=5000, seed=0):
+    dtype, sums = WINDOW_MEAN_ROUTES[route]
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    table = (torch.randn((vocab, dim), device=cuda, generator=g) * 0.1).to(dtype)
+    ids = torch.randint(0, vocab, (rows, window), device=cuda, generator=g)
+    fw = torch.rand((rows, window), device=cuda, generator=g) * 2 if weighted else None
+    return table, ids, fw, sums
+
+
+def _window_mean_fixed_order(table, ids, fw, sums):
+    """The plain version's roundings with the window's terms added in the
+    order w = 0, 1, ..., W - 1 from the first term."""
+    rows = table[ids]
+    if fw is not None:
+        rows = rows * fw.to(table.dtype)[:, :, None]
+    acc_dtype = torch.float32 if table.dtype == torch.bfloat16 else table.dtype
+    acc = rows[:, 0].to(acc_dtype)
+    for w in range(1, ids.shape[1]):
+        acc = acc + rows[:, w].to(acc_dtype)
+    sum_dtype = table.dtype if sums == table.dtype else acc_dtype
+    return (acc.to(sum_dtype) / ids.shape[1]).to(acc_dtype)
+
+
+def _ulp(x, mantissa_bits):
+    tiny = torch.finfo(x.dtype).tiny
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp(min=tiny))) - mantissa_bits)
+
+
+def _assert_window_mean(table, ids, fw, sums):
+    before = window_mean.window_mean.launches
+    got = window_mean.window_mean(table, ids, fw, sums)
+    torch.cuda.synchronize()
+    assert window_mean.window_mean.launches == before + 1
+    # Bitwise the fixed-order expression on the card.
+    want = _window_mean_fixed_order(table, ids, fw, sums)
+    assert got.dtype == want.dtype and got.shape == (ids.shape[0], table.shape[1])
+    assert torch.equal(got, want), float((got - want).abs().max())
+    # Near today's torch.sum path, which adds in another order: one bfloat16
+    # ulp under bfloat16 sums, else four ulps of the row's magnitude (the
+    # largest mean of the terms' magnitudes in the row).
+    plain = window_mean.window_mean_plain(table, ids, fw, sums)
+    if sums == torch.bfloat16:
+        tol = _ulp(torch.maximum(got.abs(), plain.abs()), 7)
+    else:
+        terms = table[ids].float().abs()
+        if fw is not None:
+            terms = terms * fw.to(table.dtype).float().abs()[:, :, None]
+        magnitude = (terms.sum(dim=1) / ids.shape[1]).amax(dim=1, keepdim=True)
+        tol = 4 * _ulp(magnitude, 23)
+    assert torch.all((got - plain).abs() <= tol)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 10])
+@pytest.mark.parametrize("dim", [300, 256, 7, 1])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("route", sorted(WINDOW_MEAN_ROUTES))
+def test_window_mean_kernel_matches_fixed_order_bitwise_on_card(cuda, route, weighted, dim,
+                                                                window):
+    _assert_window_mean(*_window_mean_operands(cuda, route, dim, window, weighted))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["misaligned_table", "wide_rows", "window_40", "main_path"])
+@pytest.mark.parametrize("route", ["bf16_bf16_sums", "f32"])
+def test_window_mean_kernel_edge_cases_on_card(cuda, route, case):
+    """A table that starts one element in (the scalar loop), rows of 1,000
+    (three column tiles at VEC = 4), a window longer than a warp, and the
+    main path's shape (B 51,200, W 10, d 300, Zipf 1.07 ids over 65,536
+    words)."""
+    if case == "misaligned_table":
+        table, ids, fw, sums = _window_mean_operands(cuda, route, 300, 10, True)
+        table = table.reshape(-1)[1:1 + 4999 * 300].reshape(4999, 300)
+        ids = ids % 4999
+    elif case == "wide_rows":
+        table, ids, fw, sums = _window_mean_operands(cuda, route, 1000, 10, True)
+    elif case == "window_40":
+        table, ids, fw, sums = _window_mean_operands(cuda, route, 300, 40, True)
+    else:
+        table, _, fw, sums = _window_mean_operands(cuda, route, 300, 10, False, rows=8,
+                                                   vocab=65536)
+        g = torch.Generator(device=cuda).manual_seed(1)
+        zipf = torch.arange(1, 65537, dtype=torch.float64, device=cuda).pow(-1.07).float()
+        ids = torch.multinomial(zipf, 51200 * 10, replacement=True, generator=g)
+        ids = ids.reshape(51200, 10)
+    _assert_window_mean(table, ids, fw, sums)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["bf16_bf16_sums", "f32"])
+def test_window_mean_runs_without_a_sync_and_replays_from_a_graph(cuda, route):
+    """The launch never waits for the card, and one CUDA-graph capture of it
+    replays to the eager bits, also after the table and the ids change in
+    place."""
+    table, ids, fw, sums = _window_mean_operands(cuda, route, 300, 10, True, rows=4096)
+    eager = window_mean.window_mean(table, ids, fw, sums)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = window_mean.window_mean(table, ids, fw, sums)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(again, eager)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        window_mean.window_mean(table, ids, fw, sums)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = window_mean.window_mean(table, ids, fw, sums)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    table.mul_(-3.0)
+    ids.copy_(ids.flip(0))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, window_mean.window_mean(table, ids, fw, sums))
+    assert not torch.equal(captured, eager)
+
+
+@pytest.mark.cuda
+def test_window_mean_refuses_what_it_has_no_kernel_for(cuda):
+    """A float64 table and int32 ids raise on the card (no training path
+    feeds them), and nothing is launched."""
+    table, ids, _, _ = _window_mean_operands(cuda, "f32", 8, 3, False, rows=5, vocab=10)
+    before = window_mean.window_mean.launches
+    with pytest.raises(ValueError, match="no kernel"):
+        window_mean.window_mean(table.double(), ids, None)
+    with pytest.raises(ValueError, match="no kernel"):
+        window_mean.window_mean(table, ids.int(), None)
+    assert window_mean.window_mean.launches == before
